@@ -1,0 +1,164 @@
+"""Batched m-sweep engine (port of ``repro/experiments/engine.py``).
+
+Where the reference vmaps one masked, padded simulation over the worker
+grid, this engine writes the batch dimension out: all members of a
+bucket, times all seed replicates, are B independent simulations whose
+state tensors share a leading axis of size B, and each member's live
+worker count ``m`` is an entry of a ``(B,)`` tensor.  The iteration scan
+is a Python loop over steps that each update all B simulations at once.
+
+The contract kept from the reference:
+
+  * workers with index >= m are masked out of every reduction and write,
+    so the padded run is numerically the m-worker run;
+  * all random draws (`Algorithm.make_draws`) are made once at the global
+    ``m_top = max(ms)`` and sliced per pad width, so member m consumes the
+    same draws in any bucket and execution mode;
+  * bucketed padding (`_buckets`, ``MAX_PAD_RATIO = 2``) under each
+    algorithm's ``bucketed_default`` / ``force_flat`` policy;
+  * the seed axis: seed 0 draws with the caller's key, seed s with
+    ``fold_in(key, s)``;
+  * the same result dict (`_losses_dict`).
+
+``per_m=True`` runs each m alone (padded to ``m_top``), the sequential
+reference the equivalence tests compare with (the reference's
+``use_vmap=False``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch import random as R
+from repro_torch.core import problems as problems_mod
+from repro_torch.core.algorithms import base as alg_base
+
+#: Pad-waste bound for `_buckets`: within a bucket, the padded worker axis
+#: is at most this multiple of the smallest member.
+MAX_PAD_RATIO = 2.0
+
+
+def _losses_dict(algorithm: str, ms, losses, iters: int, eval_every: int,
+                 problem: str = "logistic", n_seeds: int = 1):
+    """Engine output contract: ``losses`` (S, n_seeds, n_evals) becomes
+    seed-0 curves per m, plus ``losses_seeds`` when n_seeds > 1."""
+    losses = losses.detach().cpu().tolist()
+    out = {
+        "algorithm": algorithm,
+        "problem": problem,
+        "ms": [int(m) for m in ms],
+        "iters": int(iters),
+        "eval_every": int(eval_every),
+        "n_seeds": int(n_seeds),
+    }
+    out["losses"] = [[float(v) for v in row[0]] for row in losses]
+    if n_seeds > 1:
+        out["losses_seeds"] = [[[float(v) for v in curve] for curve in row]
+                               for row in losses]
+    return out
+
+
+def _buckets(ms: Sequence[int],
+             max_pad_ratio: float = MAX_PAD_RATIO
+             ) -> List[Tuple[Tuple[int, ...], int]]:
+    """Greedy waste-bounded partition of the m-grid: ``[(positions,
+    m_pad), ...]``; ascending, a member opens a new bucket when it would
+    exceed ``max_pad_ratio *`` the bucket's smallest m."""
+    order = sorted(range(len(ms)), key=lambda i: ms[i])
+    out: List[Tuple[Tuple[int, ...], int]] = []
+    cur: List[int] = []
+    for i in order:
+        if cur and ms[i] > max_pad_ratio * ms[cur[0]]:
+            out.append((tuple(cur), ms[cur[-1]]))
+            cur = []
+        cur.append(i)
+    if cur:
+        out.append((tuple(cur), ms[cur[-1]]))
+    return out
+
+
+def _simulate(alg, prob, train, test, members: Sequence[int], m_pad: int,
+              draws_by_seed, iters: int, eval_every: int) -> torch.Tensor:
+    """Run ``members`` x seeds as one batch at pad width ``m_pad``;
+    returns losses (len(members), n_seeds, n_evals)."""
+    dev = train.X.device
+    n_seeds = len(draws_by_seed)
+    B = len(members) * n_seeds
+    # element b = (member b // n_seeds, seed b % n_seeds)
+    m = torch.tensor(members, dtype=torch.int64,
+                     device=dev).repeat_interleave(n_seeds)
+    seed_of = torch.arange(n_seeds, device=dev).repeat(len(members))
+    subs = [alg.slice_draws(d, m_pad) for d in draws_by_seed]
+    if isinstance(subs[0], dict):
+        stacked = {k: torch.stack([s[k] for s in subs]) for k in subs[0]}
+    else:
+        stacked = torch.stack(subs)
+    # (iters, B, ...): iteration t's draws for every element, contiguous
+    per_elem = alg_base.map_draws(
+        lambda a: a[seed_of].movedim(1, 0).contiguous(), stacked)
+
+    ctx = alg_base.SimContext(m, m_pad)
+    state = alg.init_state(prob, train, ctx)
+    n_evals = iters // eval_every
+    losses = torch.empty(B, n_evals, device=dev)
+    for e in range(n_evals):
+        for t in range(e * eval_every, (e + 1) * eval_every):
+            state = alg.step(prob, train, ctx, state,
+                             alg_base.map_draws(lambda a: a[t], per_elem), t)
+        losses[:, e] = prob.test_loss(alg.readout(ctx, state), test.X,
+                                      test.y)
+    return losses.reshape(len(members), n_seeds, n_evals)
+
+
+def sweep(algorithm: Union[str, alg_base.Algorithm], train, test,
+          ms: Sequence[int], *, iters: int, eval_every: int,
+          problem="logistic", lam: Optional[float] = None, key=None,
+          per_m: bool = False, bucketed: Optional[bool] = None,
+          n_seeds: int = 1, **alg_kwargs) -> Dict:
+    """Run ``algorithm`` on ``problem`` over the worker grid ``ms``, on the
+    device the training data lives on.
+
+    ``algorithm`` is a registry name (instantiated with ``alg_kwargs``) or
+    an `Algorithm` instance; ``problem`` a registry name / class /
+    instance.  ``bucketed=None`` defers to the algorithm's policy;
+    ``n_seeds > 1`` replicates every member over independent draws."""
+    if isinstance(algorithm, alg_base.Algorithm):
+        if alg_kwargs:
+            raise TypeError("pass algorithm kwargs either via the instance "
+                            "or via **alg_kwargs, not both")
+        alg = algorithm
+    else:
+        alg = alg_base.get_algorithm(algorithm)(**alg_kwargs)
+    prob = problems_mod.resolve_problem(problem, lam)
+    dev = train.X.device
+    key = (key if key is not None else R.PRNGKey(0)).to(dev)
+    if n_seeds < 1:
+        raise ValueError(f"n_seeds={n_seeds} must be >= 1")
+
+    ms = [int(m) for m in ms]
+    m_top = max(ms)
+    n, d = train.X.shape
+    seed_keys = [key] + [R.fold_in(key, s) for s in range(1, n_seeds)]
+    draws_by_seed = [alg.make_draws(k, n, iters, m_top, d)
+                     for k in seed_keys]
+
+    if bucketed is None:
+        bucketed = alg.bucketed_default
+    if alg.force_flat:
+        bucketed = False
+    if per_m:
+        groups = [((i,), m_top) for i in range(len(ms))]
+    elif bucketed:
+        groups = _buckets(ms)
+    else:
+        groups = [(tuple(range(len(ms))), m_top)]
+    rows = [None] * len(ms)
+    for pos, m_pad in groups:
+        out = _simulate(alg, prob, train, test, [ms[i] for i in pos], m_pad,
+                        draws_by_seed, iters, eval_every)
+        for k, i in enumerate(pos):
+            rows[i] = out[k]
+    return _losses_dict(alg.name, ms, torch.stack(rows), iters, eval_every,
+                        problem=prob.name, n_seeds=n_seeds)

@@ -1,0 +1,39 @@
+"""Build and load the CUDA extension from the sources in ``csrc/``.
+
+The first kernel launch of a process compiles ``csrc/*.cu`` with ``nvcc``
+for ``sm_90a`` (Hopper) and the CPython binding with the host compiler,
+all in one ``torch.utils.cpp_extension.load`` call, into
+``build/torch_kernels/`` at the repository root; later calls reuse the
+loaded module.  Fast math is deliberately off: the quantization kernel
+must divide and round exactly as the reference does.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCES = [os.path.join(_HERE, "csrc", name)
+           for name in ("bind.cpp", "l0.cu", "quantize.cu")]
+BUILD_DIR = os.path.join(_HERE, os.pardir, os.pardir, os.pardir, "build",
+                         "torch_kernels")
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+
+
+@functools.lru_cache(maxsize=None)
+def extension():
+    """The loaded ``repro_torch_kernels`` module (built on first call)."""
+    from torch.utils.cpp_extension import load
+    build_dir = os.path.normpath(BUILD_DIR)
+    os.makedirs(build_dir, exist_ok=True)
+    return load(name="repro_torch_kernels", sources=SOURCES,
+                build_directory=build_dir, extra_cflags=["-O3"],
+                extra_cuda_cflags=CUDA_FLAGS, verbose=False)
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError {err})")

@@ -1,0 +1,106 @@
+// Python binding of the port's CUDA kernels (module repro_torch_kernels).
+//
+// Each function takes device pointers and the CUDA stream as Python ints
+// (tensor.data_ptr(), torch.cuda.current_stream().cuda_stream), launches
+// one kernel on that stream without synchronising, and returns the CUDA
+// error code of the launch (0 on success); the Python wrappers in
+// repro_torch/kernels check shapes, types and devices before calling and
+// raise on a non-zero code.  Only the CPython API is included here, so the
+// binding compiles in about a second.
+
+#include <Python.h>
+#include <stdint.h>
+
+extern "C" {
+int repro_l0_rows(const float* x, const float* y, float* out, int64_t n,
+                  int64_t d, float tol, void* stream);
+int repro_l0_shift_sum(const float* x, int64_t* out, int64_t nb, int64_t b,
+                       int64_t d, int64_t r, float tol, void* stream);
+int repro_quantize_rows(const float* x, const float* u, const float* scale,
+                        void* q, int64_t rows, int64_t d, float qmax,
+                        int qbytes, void* stream);
+int repro_dequantize_rows(const void* q, const float* scale, float* out,
+                          int64_t rows, int64_t d, int qbytes, void* stream);
+}
+
+namespace {
+
+template <typename T>
+T* ptr(unsigned long long p) {
+  return reinterpret_cast<T*>(static_cast<uintptr_t>(p));
+}
+
+PyObject* l0_rows(PyObject*, PyObject* args) {
+  unsigned long long x, y, out, stream;
+  long long n, d;
+  float tol;
+  if (!PyArg_ParseTuple(args, "KKKLLfK", &x, &y, &out, &n, &d, &tol,
+                        &stream)) {
+    return nullptr;
+  }
+  int err = repro_l0_rows(ptr<const float>(x), ptr<const float>(y),
+                          ptr<float>(out), n, d, tol, ptr<void>(stream));
+  return PyLong_FromLong(err);
+}
+
+PyObject* l0_shift_sum(PyObject*, PyObject* args) {
+  unsigned long long x, out, stream;
+  long long nb, b, d, r;
+  float tol;
+  if (!PyArg_ParseTuple(args, "KKLLLLfK", &x, &out, &nb, &b, &d, &r, &tol,
+                        &stream)) {
+    return nullptr;
+  }
+  int err = repro_l0_shift_sum(ptr<const float>(x), ptr<int64_t>(out), nb, b,
+                               d, r, tol, ptr<void>(stream));
+  return PyLong_FromLong(err);
+}
+
+PyObject* quantize_rows(PyObject*, PyObject* args) {
+  unsigned long long x, u, scale, q, stream;
+  long long rows, d;
+  float qmax;
+  int qbytes;
+  if (!PyArg_ParseTuple(args, "KKKKLLfiK", &x, &u, &scale, &q, &rows, &d,
+                        &qmax, &qbytes, &stream)) {
+    return nullptr;
+  }
+  int err = repro_quantize_rows(ptr<const float>(x), ptr<const float>(u),
+                                ptr<const float>(scale), ptr<void>(q), rows,
+                                d, qmax, qbytes, ptr<void>(stream));
+  return PyLong_FromLong(err);
+}
+
+PyObject* dequantize_rows(PyObject*, PyObject* args) {
+  unsigned long long q, scale, out, stream;
+  long long rows, d;
+  int qbytes;
+  if (!PyArg_ParseTuple(args, "KKKLLiK", &q, &scale, &out, &rows, &d,
+                        &qbytes, &stream)) {
+    return nullptr;
+  }
+  int err = repro_dequantize_rows(ptr<const void>(q), ptr<const float>(scale),
+                                  ptr<float>(out), rows, d, qbytes,
+                                  ptr<void>(stream));
+  return PyLong_FromLong(err);
+}
+
+PyMethodDef kMethods[] = {
+    {"l0_rows", l0_rows, METH_VARARGS, "K1: per-row L0 distance"},
+    {"l0_shift_sum", l0_shift_sum, METH_VARARGS,
+     "K2: per-batch L0 totals over cyclic shifts 1..r"},
+    {"quantize_rows", quantize_rows, METH_VARARGS,
+     "K3: row-scaled stochastic quantization"},
+    {"dequantize_rows", dequantize_rows, METH_VARARGS,
+     "K4: row-scaled dequantization"},
+    {nullptr, nullptr, 0, nullptr}};
+
+PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "repro_torch_kernels",
+                       "CUDA kernels of repro_torch", -1, kMethods,
+                       nullptr, nullptr, nullptr, nullptr};
+
+}  // namespace
+
+PyMODINIT_FUNC PyInit_repro_torch_kernels(void) {
+  return PyModule_Create(&kModule);
+}

@@ -1,0 +1,136 @@
+"""K1-K4: the plain versions against the reference's Pallas kernels
+(``repro.kernels.ops``, interpret mode on the CPU), exactly.  The CUDA
+kernels are held against the plain versions in test_torch_cuda.py."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops
+from repro_torch import kernels
+from repro_torch import random as R
+from repro_torch.core import compression
+from repro_torch.kernels import csim as kc
+from repro_torch.kernels import quantize as kq
+
+
+def _pair(n, d, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.random((n, d)) < 0.6) * rng.random((n, d))
+    y = x + (rng.random((n, d)) < 0.3) * rng.random((n, d)) * 0.5
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+@pytest.mark.parametrize("n,d", [(512, 400), (33, 7), (300, 600), (1, 1)])
+@pytest.mark.parametrize("tol", [0.0, 0.25])
+def test_l0_rows_plain_matches_pallas(n, d, tol):
+    x, y = _pair(n, d, n + d)
+    ref = np.asarray(ops.l0_rows(x, y, tol))
+    got = kc.l0_rows_plain(torch.tensor(x), torch.tensor(y), tol)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(ref, got.numpy())
+
+
+@pytest.mark.parametrize("n,d,rng", [(128, 40, 8), (37, 9, 1), (20, 5, 16)])
+@pytest.mark.parametrize("tol", [0.0, 0.25])
+def test_l0_shift_sum_plain_matches_pallas_csim(n, d, rng, tol):
+    x, _ = _pair(n, d, rng)
+    ref = float(ops.csim(x, rng, tol))
+    total = int(kc.l0_shift_sum_plain(torch.tensor(x)[None], rng, tol)[0])
+    assert ref * n * rng == pytest.approx(total, abs=0.5)
+    from repro_torch.core import metrics
+    assert metrics.csim(torch.tensor(x), rng, tol) == ref
+
+
+def test_l0_shift_sum_plain_matches_per_shift_l0_rows():
+    """K2 with r = b - 1 replaces the per-shift l0_rows calls of
+    _pairwise_l0_means (metrics.py:140)."""
+    x, _ = _pair(64 * 8, 30, 2)
+    batches = x.reshape(64, 8, 30)
+    cols = np.arange(8)
+    want = np.zeros(64)
+    for s in range(1, 8):
+        rolled = batches[:, (cols + s) % 8].reshape(-1, 30)
+        want += np.asarray(ops.l0_rows(x, rolled)).reshape(64, 8).sum(1)
+    got = kc.l0_shift_sum_plain(torch.tensor(batches), 7)
+    np.testing.assert_array_equal(want.astype(np.int64), got.numpy())
+
+
+@pytest.mark.parametrize("n,d", [(48, 28), (1, 7)])
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_quantize_plain_matches_pallas(n, d, bits):
+    """ops.quantize_stochastic draws u = uniform(key, (n, d)) (no padding
+    below the 256 x 512 tile) and reduces one scale in its wrapper; given
+    that scale as the one-row case, K3's and K4's plain versions give the
+    reference's integers and values exactly."""
+    rng = np.random.default_rng(bits)
+    x = (rng.standard_normal((n, d)) * 3).astype(np.float32)
+    key = jax.random.PRNGKey(n * d + bits)
+    q_ref, s_ref = ops.quantize_stochastic(x, key, bits=bits)
+    u = R.uniform(R.PRNGKey(n * d + bits), (n, d)).reshape(1, -1)
+    scale = torch.tensor([float(s_ref)], dtype=torch.float32)
+    q = kq.quantize_rows_plain(torch.tensor(x).reshape(1, -1), u, scale,
+                               bits)
+    assert q.dtype == {4: torch.int8, 8: torch.int8, 16: torch.int16}[bits]
+    np.testing.assert_array_equal(np.asarray(q_ref), q.reshape(n, d).numpy())
+    np.testing.assert_array_equal(
+        np.asarray(ops.dequantize(q_ref, s_ref)),
+        kq.dequantize_rows_plain(q, scale).reshape(n, d).numpy())
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_quantize_stochastic_matches_reference(bits):
+    """The port's C(.) — scale, integers and values — against the
+    reference's jnp operator (compression.py:15)."""
+    from repro.core import compression as jc
+    rng = np.random.default_rng(bits)
+    x = (rng.standard_normal((40, 28)) * 3).astype(np.float32)
+    key = jax.random.PRNGKey(bits)
+    q_ref, s_ref = jc.quantize_stochastic(x, key, bits=bits)
+    q, s = compression.quantize_stochastic(
+        torch.tensor(x), R.uniform(R.PRNGKey(bits), (40, 28)), bits=bits)
+    assert float(s_ref) == float(s)
+    np.testing.assert_array_equal(np.asarray(q_ref), q.numpy())
+    np.testing.assert_array_equal(np.asarray(jc.dequantize(q_ref, s_ref)),
+                                  compression.dequantize(q, s).numpy())
+
+
+def test_row_scales_match_per_row_reference():
+    """Each row quantized alone by the reference equals that row of one
+    batched per-row call (ECD-PSGD's vmapped C(.), ecd_psgd.py:76)."""
+    from repro.core import compression as jc
+    rng = np.random.default_rng(0)
+    z = (rng.standard_normal((24, 28)) * np.arange(1, 25)[:, None]
+         ).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(4), 24)
+    u = R.uniform(R.split(R.PRNGKey(4), 24), (28,))
+    q, s = compression.quantize_rows_stochastic(torch.tensor(z), u)
+    cz = compression.dequantize_rows(q, s)
+    for i in range(24):
+        qi, si = jc.quantize_stochastic(z[i], keys[i])
+        np.testing.assert_array_equal(np.asarray(qi), q[i].numpy())
+        np.testing.assert_array_equal(np.asarray(jc.dequantize(qi, si)),
+                                      cz[i].numpy())
+
+
+def test_cpu_route_counts_no_launch():
+    kernels.reset_launch_counts()
+    x = torch.rand(4, 5)
+    kc.l0_rows(x, x)
+    kc.l0_shift_sum(x[None], 2)
+    q = kq.quantize_rows(x, x, torch.ones(4))
+    kq.dequantize_rows(q, torch.ones(4))
+    assert kernels.launch_counts() == {
+        "l0_rows": 0, "l0_shift_sum": 0, "quantize_rows": 0,
+        "dequantize_rows": 0}
+
+
+def test_other_devices_raise():
+    x = torch.empty(4, 5, device="meta")
+    with pytest.raises(ValueError):
+        kc.l0_rows(x, x)
+    with pytest.raises(ValueError):
+        kc.l0_shift_sum(x[None], 2)
+    with pytest.raises(ValueError):
+        kq.quantize_rows(x, x, torch.empty(4, device="meta"))
