@@ -6,20 +6,34 @@
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    CUDA extension from ``src/repro_torch/kernels/csrc``, printing the
    build time.
-2. Holds each kernel K1-K4 against its plain PyTorch version on the card
-   at the shapes the ``upper_bound`` path gives it and at ragged ones:
-   K1-K3 must agree exactly, K4 within one float32 ulp.  Each kernel's
-   time, its plain version's time and its bound are measured at the main
-   path's largest shape (CUDA-graph replays timed with CUDA events).
+2. Holds each kernel against its plain PyTorch version on the card at the
+   shapes its main path gives it and at ragged ones: K1-K3 must agree
+   exactly, K4 within one float32 ulp, K5 (RMSNorm) within 1e-6 in
+   float32 and one ulp in bfloat16, K6 (flash attention) within 2e-5 in
+   float32 and 2e-2 in bfloat16.  Each kernel's time, its plain
+   version's time, its bound and (K5, K6) the time of the one PyTorch
+   call that computes the same function are measured at the main path's
+   shape (CUDA-graph replays timed with CUDA events).
 3. Runs the ``upper_bound`` spec (paper Table II) on the GPU at its
    published iteration count, with every launch counter set to 0 just
-   before and read just after: each kernel must have launched.
+   before and read just after: each of K1-K4 must have launched.
 4. Checks the output: a short ``upper_bound`` run on the GPU must agree
    with the same run on the CPU (the plain versions) — characters to
    1e-6 relative, curves to 1e-5, every value finite; ECD-PSGD, whose
    quantizer turns an ulp into a quantum, within the reference's own
    2e-2 envelope for execution-order differences.
-5. Prints one JSON line with each kernel's numbers, then the final line
+5. Serves full-width gemma3-1b in bfloat16 with random weights from a
+   seed: a prefill of 4 prompts of 2048 tokens through
+   ``make_prefill_step``, then ``greedy_generate`` of 24 tokens for 4
+   requests of 16 prompt tokens, with the counters set to 0 just before
+   and read just after: K6 must launch 26 times (once a layer) and K5
+   2173 times (53 per prefill and per decode step).
+6. Checks the serving output: the prefill's next-token logits against the
+   same prefill with no kernel (``attention_impl="reference"``) within
+   2e-2 relative L2, and, in float32 on a 6-layer cut, the prefill's
+   logits at each of 1100 positions against token-by-token decoding
+   within 5e-4.
+7. Prints one JSON line with each kernel's numbers, then the final line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU, outside a checkout of
@@ -28,6 +42,7 @@ the repository, or when any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -39,6 +54,11 @@ import time
 # published peaks of one H100 SXM (dense, no sparsity) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+
+SWEEP_KERNELS = ("l0_rows", "l0_shift_sum", "quantize_rows",
+                 "dequantize_rows")
+SERVE_KERNELS = ("rmsnorm", "flash_attention")
 
 
 def _fail(msg: str) -> int:
@@ -83,17 +103,19 @@ def _copies(nbytes: int) -> int:
     return max(1, min(256, math.ceil(100e6 / max(nbytes, 1))))
 
 
-def _timed(kernel, plain, inputs, nbytes):
-    """(kernel ms, plain ms) over rotating copies of ``inputs``."""
+def _timed(kernel, plain, inputs, nbytes, library=None, reps=64):
+    """(kernel ms, plain ms[, library ms]) over rotating copies of
+    ``inputs``."""
     sets = [inputs] + [tuple(t.clone() for t in inputs)
                        for _ in range(_copies(nbytes) - 1)]
-    return (_graph_ms([lambda a=a: kernel(*a) for a in sets]),
-            _graph_ms([lambda a=a: plain(*a) for a in sets]))
+    fns = (kernel, plain) + ((library,) if library else ())
+    return tuple(_graph_ms([lambda a=a, f=f: f(*a) for a in sets], reps)
+                 for f in fns)
 
 
-def _bound_ms(nbytes: float, nops: float):
+def _bound_ms(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -233,6 +255,241 @@ def check_kernels(dev):
     return records
 
 
+def _bf16_ulp(x):
+    """The spacing of bfloat16 at |x| (that of 2**-126 below it)."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+                      - 7)
+
+
+def _band_pairs(S: int, T: int, window: int) -> int:
+    """Unmasked (row, col) pairs of a causal attention with ``window``."""
+    total = 0
+    for r in range(S):
+        lo = max(0, r - window + 1) if window else 0
+        total += max(0, min(r, T - 1) - lo + 1)
+    return total
+
+
+def check_lm_kernels(dev):
+    """Phase 2, serving kernels: K5 and K6 against their plain versions;
+    returns their records (without launch counts)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rmsnorm as krms
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    records = {}
+
+    # K5: the prefill's (4 * 2048, 1152) rows and a decode step's 4, in
+    # bfloat16, plus the reference's ragged float32 shapes
+    err = 0.0
+    for (n, d), dtype in [((8192, 1152), torch.bfloat16),
+                          ((4, 1152), torch.bfloat16),
+                          ((5, 1152), torch.float32),
+                          ((300, 128), torch.float32)]:
+        x, w = randn(n, d, dtype=dtype), randn(d, dtype=dtype)
+        got = krms.rmsnorm_2d(x, w).float()
+        want = krms.rmsnorm_plain(x, w).float()
+        torch.cuda.synchronize()
+        bound = (1e-6 + 1e-7 * want.abs() if dtype == torch.float32
+                 else _bf16_ulp(want))
+        diff = (got - want).abs()
+        if not bool((diff <= bound).all()):
+            raise AssertionError(f"K5 rmsnorm differs at {n}x{d} {dtype}: "
+                                 f"max {float(diff.max())}")
+        err = max(err, float(diff.max()))
+    n, d = 8192, 1152
+    x, w = randn(n, d, dtype=torch.bfloat16), randn(d, dtype=torch.bfloat16)
+    nbytes = 2 * n * d * 2 + d * 2
+    bound, by = _bound_ms(nbytes, 4 * n * d)
+    ms, plain_ms, library_ms = _timed(
+        krms.rmsnorm_2d, krms.rmsnorm_plain, (x, w), nbytes,
+        library=lambda a, b: F.rms_norm(a, (d,), b, krms.EPS))
+    records["rmsnorm"] = {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:20",
+        "max_abs_err": err, "shape": [n, d, "bf16"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": library_ms}
+
+    # K6: gemma3-1b's prefill (4 queries heads, 1 KV head, D = 256) with
+    # and without its 1024 window, the reference's sweep shapes (ragged
+    # S = 200, D = 48 with window 16) and the float32 serve-check shape
+    err = 0.0
+    cases = [((4, 2048, 4, 1, 256, 0), torch.bfloat16),
+             ((4, 2048, 4, 1, 256, 1024), torch.bfloat16),
+             ((1, 1100, 4, 1, 256, 1024), torch.float32)]
+    sweep = [(1, 64, 2, 2, 32, 0), (2, 128, 4, 2, 64, 0),
+             (2, 200, 4, 1, 64, 0), (1, 256, 8, 8, 128, 0),
+             (2, 128, 4, 2, 64, 32), (1, 96, 6, 3, 48, 16)]
+    cases += [(c, t) for t in (torch.float32, torch.bfloat16) for c in sweep]
+    for (B, S, H, KV, D, window), dtype in cases:
+        q = randn(B, S, H, D, dtype=dtype)
+        k, v = randn(B, S, KV, D, dtype=dtype), randn(B, S, KV, D, dtype=dtype)
+        got = kfa.flash_attention(q, k, v, True, window).float()
+        want = kfa.attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), True,
+                                   window).transpose(1, 2).float()
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        diff = (got - want).abs()
+        if not bool((diff <= tol + tol * want.abs()).all()):
+            raise AssertionError(f"K6 flash_attention differs at "
+                                 f"{(B, S, H, KV, D, window)} {dtype}: max "
+                                 f"{float(diff.max())}")
+        err = max(err, float(diff.max()))
+    # times per launch at the prefill's shape, both kinds of layer; the
+    # record holds their mean over the prefill's 22 local + 4 global layers
+    B, S, H, KV, D = 4, 2048, 4, 1, 256
+    q = randn(B, H, S, D, dtype=torch.bfloat16)
+    k = randn(B, KV, S, D, dtype=torch.bfloat16)
+    v = randn(B, KV, S, D, dtype=torch.bfloat16)
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
+    rows = torch.arange(S, device=dev)
+    by_window = {}
+    for window, layers in ((0, 4), (1024, 22)):
+        nops = 4 * B * H * D * _band_pairs(S, S, window)
+        bound, by = _bound_ms(nbytes, nops, BF16_TENSOR_OPS_PER_S)
+        if window:
+            mask = ((rows[None, :] <= rows[:, None])
+                    & (rows[None, :] > rows[:, None] - window))
+            library = (lambda a, b, c, m=mask: F.scaled_dot_product_attention(
+                a, b, c, attn_mask=m, enable_gqa=True))
+        else:
+            library = (lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, is_causal=True, enable_gqa=True))
+        ms, plain_ms, library_ms = _timed(
+            lambda a, b, c, w=window: kfa.flash_attention_bhsd(a, b, c, True,
+                                                               w),
+            lambda a, b, c, w=window: kfa.attention_plain(a, b, c, True, w),
+            (q, k, v), nbytes, library=library, reps=8)
+        by_window[window] = {"layers": layers, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by,
+                             "library_ms": library_ms, "gflop": nops / 1e9}
+    mean = {key: sum(r["layers"] * r[key] for r in by_window.values()) / 26
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    records["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "max_abs_err": err, "shape": [B, H, S, D, KV, "bf16"],
+        "bound_by": by_window[0]["bound_by"], "by_window": by_window,
+        **mean}
+    return records
+
+
+def run_serve(dev):
+    """Phase 5: full-width gemma3-1b, bfloat16, random weights from a seed;
+    a prefill of 4 x 2048 tokens, then greedy decoding of 24 tokens for 4
+    requests of 16 prompt tokens.  Returns (report, launches, params,
+    batch, next-token logits)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+
+    cfg = get_arch("gemma3-1b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(cfg, gen, dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
+                                     generator=gen, device=dev)}
+    prompts = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                            device=dev)
+    prefill = E.make_prefill_step(cfg)
+    prefill(params, batch)                          # warm-up, not counted
+    E.greedy_generate(params, cfg, prompts, 2, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = E.greedy_generate(params, cfg, prompts, 24, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = kernels.launch_counts()
+    steps = prompts.shape[1] + 24
+    report = {"prefill_ms": (t1 - t0) * 1e3,
+              "prefill_tokens_per_s": batch["tokens"].numel() / (t1 - t0),
+              "decode_ms_per_token": (t2 - t1) * 1e3 / steps,
+              "generated_tokens_per_s": out.numel() / (t2 - t1),
+              "max_memory_allocated_gb":
+                  torch.cuda.max_memory_allocated() / 1e9}
+    if logits.shape != (4, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are malformed or not finite")
+    if out.shape != (4, 24) or int(out.min()) < 0 \
+            or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens malformed: {out.shape}")
+    want = {"flash_attention": cfg.num_layers,
+            "rmsnorm": (2 * cfg.num_layers + 1) * (1 + steps)}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"on the serving path, expected {n}")
+    return report, launches, params, batch, logits
+
+
+def check_serve(dev, params, batch, logits):
+    """Phase 6: (a) the kernel prefill against the prefill with no kernel,
+    bfloat16 at full width: relative L2 of the next-token logits at most
+    2e-2; (b) float32 on a 6-layer cut (five local layers, one global),
+    one prompt of 1100 tokens: the prefill's logits at every position
+    against token-by-token decoding within 5e-4, the reference's own
+    bound (tests/test_archs.py).  The check (a) call converts ``params``
+    to float32 in place."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+
+    cfg = params.cfg
+    prefill_plain = E.make_prefill_step(cfg, attention_impl="reference")
+    plain = prefill_plain(params, batch)
+    rel = rel_l2(logits, plain)
+    agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    if not rel <= 2e-2:
+        raise AssertionError(f"kernel prefill differs from the plain one: "
+                             f"relative L2 {rel} > 2e-2")
+    # where the difference comes from: each bfloat16 path against the same
+    # weights in float32 (printed, not checked)
+    exact = prefill_plain(params.float(), batch)
+    to_f32 = {"kernel": rel_l2(logits, exact), "reference": rel_l2(plain,
+                                                                   exact)}
+    del params, plain, exact
+
+    cfg6 = dataclasses.replace(cfg, num_layers=6, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params6 = M.init_params(cfg6, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1100), generator=gen,
+                           device=dev)
+    full, _ = M.forward(params6, cfg6, {"tokens": tokens})
+    state = M.init_decode_state(cfg6, 1, tokens.shape[1], device=dev)
+    err = torch.zeros((), device=dev)
+    for t in range(tokens.shape[1]):
+        step, state = M.decode_step(params6, cfg6, tokens[:, t:t + 1], state)
+        err = torch.maximum(err, (step[:, 0] - full[:, t]).abs().max())
+    err = float(err)
+    if not err <= 5e-4:
+        raise AssertionError(f"prefill and decode logits differ by {err} > "
+                             f"5e-4")
+    return {"a_rel_l2": rel, "a_argmax_agreement": agree,
+            "a_rel_l2_to_float32": to_f32, "b_max_abs_diff": err,
+            "b_windows": [s.window for s in M.layer_plan(cfg6)]}
+
+
 def _close(a, b, rel):
     return abs(a - b) <= rel * max(abs(a), abs(b), 1e-30)
 
@@ -310,12 +567,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     records = check_kernels(dev)
+    records.update(check_lm_kernels(dev))
     print(f"phase kernels: ok in {time.perf_counter() - t0:.2f}s", flush=True)
     for rec in records.values():
         print(f"  {rec['name']:16s} shape={rec['shape']} "
               f"ms={rec['ms']:.6f} plain_ms={rec['plain_ms']:.6f} "
               f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}) "
+              f"library_ms={rec['library_ms']} "
               f"max_abs_err={rec['max_abs_err']}", flush=True)
+    by_window = records["flash_attention"].pop("by_window")
+    print(f"  flash_attention per launch by window {json.dumps(by_window)}",
+          flush=True)
 
     spec = registry.get_spec("upper_bound")
     with tempfile.TemporaryDirectory(dir=root) as cache_dir:
@@ -344,7 +606,7 @@ def main() -> int:
             return _fail(f"upper_bound job {key} did not finish cleanly")
     if not stored:
         return _fail("the upper_bound artifact was not stored")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SWEEP_KERNELS if launches[k] == 0]
     if missing:
         return _fail(f"kernels never launched on the main path: {missing}")
 
@@ -352,6 +614,20 @@ def main() -> int:
     agreement = check_against_cpu()
     print(f"phase gpu-vs-cpu: ok in {time.perf_counter() - t0:.2f}s "
           f"{json.dumps(agreement)}", flush=True)
+
+    t0 = time.perf_counter()
+    report, serve_launches, params, batch, logits = run_serve(dev)
+    print(f"phase serve: ok in {time.perf_counter() - t0:.2f}s gemma3-1b "
+          f"bf16 prefill 4x2048, greedy 4x(16+24) {json.dumps(report)} "
+          f"launches={serve_launches}", flush=True)
+    for name in SERVE_KERNELS:
+        launches[name] = serve_launches[name]
+
+    t0 = time.perf_counter()
+    serve_check = check_serve(dev, params, batch, logits)
+    del params, batch, logits
+    print(f"phase serve-check: ok in {time.perf_counter() - t0:.2f}s "
+          f"{json.dumps(serve_check)}", flush=True)
 
     for name, rec in records.items():
         rec["launches"] = launches[name]

@@ -8,12 +8,16 @@ turned into the port's, so tests can feed both packages identical inputs.
                    draws (ECD-PSGD's per-(iteration, worker) keys become
                    the uniform noise they seed)
   :func:`model`    a model vector -> a float32 tensor
+  :func:`lm_params`  the reference LM's ``init_params`` pytree -> the
+                   port's ``CausalLM`` (segments unstacked into per-layer
+                   blocks in layer-plan order)
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch import random as R
 from repro_torch.data.synth import Dataset
@@ -52,3 +56,50 @@ def draws(algorithm: str, ref_draws, d: int, device="cpu"):
     if algorithm in ("minibatch", "hogwild", "dadm"):
         return _tensor(ref_draws, torch.int64, device)
     raise KeyError(f"no carry-across for algorithm {algorithm!r}")
+
+
+def _array_tensor(a, device):
+    """A numpy array (bfloat16 included) -> a tensor of the same type."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def lm_params(cfg, params, device="cpu"):
+    """The reference's ``models.model.init_params`` pytree, its leaves as
+    numpy arrays, -> the port's ``CausalLM`` with the same weights.  Each
+    segment's leading (layer) axis is unstacked into per-layer blocks in
+    ``layer_plan`` order; tied embeddings and optional QKV biases follow
+    the pytree."""
+    from repro_torch.models import model as M
+    lm = M.CausalLM(cfg, None, torch.device("meta"))
+
+    def put(pdict, tree, layer=None):
+        if set(pdict.keys()) != set(tree):
+            raise ValueError(f"parameter names differ: port "
+                             f"{sorted(pdict.keys())}, reference "
+                             f"{sorted(tree)}")
+        for name, a in tree.items():
+            a = np.asarray(a)
+            t = _array_tensor(a if layer is None else a[layer], device)
+            if t.shape != pdict[name].shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, port "
+                                 f"expects {tuple(pdict[name].shape)}")
+            pdict[name] = nn.Parameter(t, requires_grad=False)
+
+    put(lm.embed, params["embed"])
+    put(lm.final_norm, params["final_norm"])
+    if "lm_head" in params:
+        lm.lm_head = nn.Parameter(_array_tensor(params["lm_head"], device),
+                                  requires_grad=False)
+    blocks = iter(lm.blocks)
+    for (_, n), stack in zip(M.segments(cfg), params["segments"]):
+        if set(stack) != {"norm1", "attn", "norm2", "mlp"}:
+            raise NotImplementedError(f"block parts {sorted(stack)}")
+        for layer in range(n):
+            block = next(blocks)
+            for part in ("norm1", "attn", "norm2", "mlp"):
+                put(getattr(block, part), stack[part], layer)
+    return lm

@@ -15,7 +15,8 @@ import os
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", name)
-           for name in ("bind.cpp", "l0.cu", "quantize.cu")]
+           for name in ("bind.cpp", "l0.cu", "quantize.cu", "rmsnorm.cu",
+                        "flash_attention.cu")]
 BUILD_DIR = os.path.join(_HERE, os.pardir, os.pardir, os.pardir, "build",
                          "torch_kernels")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]

@@ -21,6 +21,13 @@ int repro_quantize_rows(const float* x, const float* u, const float* scale,
                         int qbytes, void* stream);
 int repro_dequantize_rows(const void* q, const float* scale, float* out,
                           int64_t rows, int64_t d, int qbytes, void* stream);
+int repro_rmsnorm(const void* x, const void* gain, void* out, int64_t n,
+                  int64_t d, float eps, int dtype, void* stream);
+int repro_flash_attention(const void* q, const void* k, const void* v,
+                          void* out, int64_t B, int64_t H, int64_t KV,
+                          int64_t S, int64_t T, int64_t D,
+                          const int64_t* strides, int causal, int64_t window,
+                          float scale, int dtype, void* stream);
 }
 
 namespace {
@@ -85,6 +92,45 @@ PyObject* dequantize_rows(PyObject*, PyObject* args) {
   return PyLong_FromLong(err);
 }
 
+PyObject* rmsnorm(PyObject*, PyObject* args) {
+  unsigned long long x, gain, out, stream;
+  long long n, d;
+  float eps;
+  int dtype;
+  if (!PyArg_ParseTuple(args, "KKKLLfiK", &x, &gain, &out, &n, &d, &eps,
+                        &dtype, &stream)) {
+    return nullptr;
+  }
+  int err = repro_rmsnorm(ptr<const void>(x), ptr<const void>(gain),
+                          ptr<void>(out), n, d, eps, dtype, ptr<void>(stream));
+  return PyLong_FromLong(err);
+}
+
+// flash_attention(q, k, v, out, B, H, KV, S, T, D, strides, causal, window,
+// scale, dtype, stream); strides is a tuple of 12 element strides, (batch,
+// head, row) of q, k, v and out in turn.
+PyObject* flash_attention(PyObject*, PyObject* args) {
+  unsigned long long q, k, v, out, stream;
+  long long B, H, KV, S, T, D, window;
+  long long st[12];
+  int causal, dtype;
+  float scale;
+  if (!PyArg_ParseTuple(args, "KKKKLLLLLL(LLLLLLLLLLLL)iLfiK", &q, &k, &v,
+                        &out, &B, &H, &KV, &S, &T, &D, &st[0], &st[1],
+                        &st[2], &st[3], &st[4], &st[5], &st[6], &st[7],
+                        &st[8], &st[9], &st[10], &st[11], &causal, &window,
+                        &scale, &dtype, &stream)) {
+    return nullptr;
+  }
+  int64_t strides[12];
+  for (int i = 0; i < 12; ++i) strides[i] = st[i];
+  int err = repro_flash_attention(ptr<const void>(q), ptr<const void>(k),
+                                  ptr<const void>(v), ptr<void>(out), B, H,
+                                  KV, S, T, D, strides, causal, window, scale,
+                                  dtype, ptr<void>(stream));
+  return PyLong_FromLong(err);
+}
+
 PyMethodDef kMethods[] = {
     {"l0_rows", l0_rows, METH_VARARGS, "K1: per-row L0 distance"},
     {"l0_shift_sum", l0_shift_sum, METH_VARARGS,
@@ -93,6 +139,9 @@ PyMethodDef kMethods[] = {
      "K3: row-scaled stochastic quantization"},
     {"dequantize_rows", dequantize_rows, METH_VARARGS,
      "K4: row-scaled dequantization"},
+    {"rmsnorm", rmsnorm, METH_VARARGS, "K5: fused RMSNorm over rows"},
+    {"flash_attention", flash_attention, METH_VARARGS,
+     "K6: causal / sliding-window GQA flash attention forward"},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "repro_torch_kernels",

@@ -1,0 +1,132 @@
+"""Shared building blocks: norms, MLPs, rotary embeddings, embeddings
+(the port of ``repro/models/layers.py``, its dense parts).
+
+Parameters are dictionaries of tensors (``nn.ParameterDict`` inside the
+model); every ``init_*`` takes an explicit ``torch.Generator`` and device,
+every ``apply_*`` is a function of its inputs.  Every RMSNorm goes through
+kernel K5 (:mod:`repro_torch.kernels.rmsnorm`): its kernel on a CUDA
+tensor, its plain version on a CPU tensor; ``use_kernel=False`` asks for
+the plain version on any device.  M-RoPE and learned positions wait
+(ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import rmsnorm as krms
+
+
+def _dense_init(gen, shape, dtype, device, scale=None):
+    """``normal(shape) * scale`` drawn in float32 from ``gen`` and cast to
+    ``dtype``; ``scale`` defaults to ``1 / sqrt(fan_in)``.  On the meta
+    device only the shape is made."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def apply_rmsnorm(p, x, eps=krms.EPS, use_kernel=True):
+    if use_kernel:
+        return krms.rmsnorm(x, p["scale"], eps)
+    return krms.rmsnorm_plain(x, p["scale"], eps)
+
+
+def init_layernorm(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def apply_layernorm(p, x, eps=1e-5):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def init_norm(kind, d, dtype, device):
+    return (init_rmsnorm(d, dtype, device) if kind == "rmsnorm"
+            else init_layernorm(d, dtype, device))
+
+
+def apply_norm(kind, p, x, use_kernel=True):
+    if kind == "rmsnorm":
+        return apply_rmsnorm(p, x, use_kernel=use_kernel)
+    return apply_layernorm(p, x)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, d_model, d_ff, kind, dtype, device):
+    if kind == "swiglu":
+        return {
+            "wi_gate": _dense_init(gen, (d_model, d_ff), dtype, device),
+            "wi_up": _dense_init(gen, (d_model, d_ff), dtype, device),
+            "wo": _dense_init(gen, (d_ff, d_model), dtype, device),
+        }
+    return {  # gelu
+        "wi": _dense_init(gen, (d_model, d_ff), dtype, device),
+        "bi": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "wo": _dense_init(gen, (d_ff, d_model), dtype, device),
+        "bo": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def apply_mlp(p, x, kind):
+    """SwiGLU or GELU MLP; the activation is taken in float32 and cast
+    back, as in the reference."""
+    if kind == "swiglu":
+        g = x @ p["wi_gate"]
+        u = x @ p["wi_up"]
+        h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+        return h @ p["wo"]
+    h = x @ p["wi"] + p["bi"]
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    return h @ p["wo"] + p["bo"]
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    """Half-dim inverse frequencies, float32."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exponent)
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integers.
+    Computed in float32 and cast back to x's type."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].to(torch.float32) * inv
+    sin = torch.sin(ang)[..., None, :]                # broadcast over heads
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_embedding(gen, vocab, d_model, dtype, device):
+    return {"table": _dense_init(gen, (vocab, d_model), dtype, device,
+                                 scale=0.02)}

@@ -14,7 +14,9 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import compression
 from repro_torch.kernels import csim as kc
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import quantize as kq
+from repro_torch.kernels import rmsnorm as krms
 
 
 @pytest.fixture
@@ -56,7 +58,56 @@ def test_cuda_kernels_match_plain(cuda_device):
             assert bool((torch.abs(a - b) <= ulp).all())
     assert kernels.launch_counts() == {
         "l0_rows": 6, "l0_shift_sum": 3, "quantize_rows": 6,
-        "dequantize_rows": 6}
+        "dequantize_rows": 6, "rmsnorm": 0, "flash_attention": 0}
+
+
+def _bf16_ulp(x):
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_matches_plain(cuda_device):
+    """K5 against its plain version: float32 within the reference's 1e-6
+    (assert_allclose's rtol 1e-7 beside it), bfloat16 within one ulp."""
+    kernels.reset_launch_counts()
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    cases = [((8192, 1152), torch.bfloat16), ((4, 1152), torch.bfloat16),
+             ((5, 1152), torch.float32), ((300, 128), torch.float32)]
+    for (n, d), dtype in cases:
+        x = torch.randn(n, d, device=cuda_device, generator=g).to(dtype)
+        w = torch.randn(d, device=cuda_device, generator=g).to(dtype)
+        a = krms.rmsnorm_2d(x, w).float()
+        b = krms.rmsnorm_plain(x, w).float()
+        bound = (1e-6 + 1e-7 * b.abs() if dtype == torch.float32
+                 else _bf16_ulp(b))
+        assert bool(((a - b).abs() <= bound).all()), (n, d, dtype)
+    assert kernels.launch_counts()["rmsnorm"] == len(cases)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_matches_plain(cuda_device):
+    """K6 against its plain version at the reference's sweep shapes and
+    gemma3-1b's: float32 within 2e-5, bfloat16 within 2e-2."""
+    kernels.reset_launch_counts()
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    cases = [(1, 64, 2, 2, 32, 0), (2, 128, 4, 2, 64, 0),
+             (2, 200, 4, 1, 64, 0), (1, 256, 8, 8, 128, 0),
+             (2, 128, 4, 2, 64, 32), (1, 96, 6, 3, 48, 16),
+             (1, 1100, 4, 1, 256, 1024)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, KV, D, window in cases:
+            q, k, v = (torch.randn(B, S, n, D, device=cuda_device,
+                                   generator=g).to(dtype)
+                       for n in (H, KV, KV))
+            a = kfa.flash_attention(q, k, v, True, window).float()
+            b = kfa.attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), True,
+                                    window).transpose(1, 2).float()
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            assert bool(((a - b).abs() <= tol + tol * b.abs()).all()), \
+                (B, S, H, KV, D, window, dtype)
+    assert kernels.launch_counts()["flash_attention"] == 2 * len(cases)
 
 
 @pytest.mark.cuda
@@ -70,6 +121,18 @@ def test_kernels_reject_bad_inputs(cuda_device):
         kc.l0_shift_sum(x, 2)
     with pytest.raises(ValueError):
         kq.quantize_rows(x, x, torch.ones(5, device=cuda_device))
+    with pytest.raises(TypeError):
+        krms.rmsnorm_2d(x.half(), torch.ones(5, device=cuda_device).half())
+    with pytest.raises(ValueError):
+        krms.rmsnorm_2d(x.t(), torch.ones(4, device=cuda_device))
+    q = torch.rand(1, 2, 8, 32, device=cuda_device)
+    kv = torch.rand(1, 1, 8, 32, device=cuda_device)
+    with pytest.raises(ValueError):
+        kfa.flash_attention_bhsd(q, kv[..., :16], kv[..., :16])
+    with pytest.raises(ValueError):
+        kfa.flash_attention_bhsd(q[..., :30], kv[..., :30], kv[..., :30])
+    with pytest.raises(TypeError):
+        kfa.flash_attention_bhsd(q.double(), kv.double(), kv.double())
 
 
 @pytest.mark.cuda
@@ -81,7 +144,9 @@ def test_upper_bound_gpu_matches_cpu(cuda_device):
     spec = registry.get_spec("upper_bound", iters=40)
     kernels.reset_launch_counts()
     gpu = runner.run_sweep(spec, device=cuda_device, use_cache=False)
-    assert all(v > 0 for v in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("l0_rows", "l0_shift_sum",
+                                       "quantize_rows", "dequantize_rows"))
     cpu = runner.run_sweep(spec, device="cpu", use_cache=False)
     for name, info in cpu["datasets"].items():
         for k, v in info["characters"].items():

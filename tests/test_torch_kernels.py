@@ -12,7 +12,9 @@ from repro_torch import kernels
 from repro_torch import random as R
 from repro_torch.core import compression
 from repro_torch.kernels import csim as kc
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import quantize as kq
+from repro_torch.kernels import rmsnorm as krms
 
 
 def _pair(n, d, seed):
@@ -121,9 +123,12 @@ def test_cpu_route_counts_no_launch():
     kc.l0_shift_sum(x[None], 2)
     q = kq.quantize_rows(x, x, torch.ones(4))
     kq.dequantize_rows(q, torch.ones(4))
+    krms.rmsnorm_2d(x, torch.ones(5))
+    kfa.flash_attention_bhsd(x.reshape(1, 1, 4, 5), x.reshape(1, 1, 4, 5),
+                             x.reshape(1, 1, 4, 5))
     assert kernels.launch_counts() == {
         "l0_rows": 0, "l0_shift_sum": 0, "quantize_rows": 0,
-        "dequantize_rows": 0}
+        "dequantize_rows": 0, "rmsnorm": 0, "flash_attention": 0}
 
 
 def test_other_devices_raise():
@@ -134,3 +139,7 @@ def test_other_devices_raise():
         kc.l0_shift_sum(x[None], 2)
     with pytest.raises(ValueError):
         kq.quantize_rows(x, x, torch.empty(4, device="meta"))
+    with pytest.raises(ValueError):
+        krms.rmsnorm_2d(x, torch.empty(5, device="meta"))
+    with pytest.raises(ValueError):
+        kfa.flash_attention_bhsd(x[None, None], x[None, None], x[None, None])

@@ -64,6 +64,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                   "--cache-dir", str(tmp_path)])
     with pytest.raises(RuntimeError):
         resolve_device()
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "1", "--prompt-len", "2", "--gen", "1"])
+    cfg = get_arch("gemma3-1b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_params(cfg)
+    params = M.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.greedy_generate(params, cfg, torch.zeros((1, 2),
+                                                        dtype=torch.int64), 1)
     assert resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
