@@ -5,15 +5,18 @@
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    CUDA extension from ``src/repro_torch/kernels/csrc``, printing the
-   build time.
+   build time; beside the build, ``nvcc -Xptxas -v`` compiles the K5 and
+   K6 sources alone and each kernel's registers and spills are printed.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its main path gives it and at ragged ones: K1-K3 must agree
    exactly, K4 within one float32 ulp, K5 (RMSNorm) within 1e-6 in
    float32 and one ulp in bfloat16, K6 (flash attention) within 2e-5 in
-   float32 and 2e-2 in bfloat16.  Each kernel's time, its plain
-   version's time, its bound and (K5, K6) the time of the one PyTorch
-   call that computes the same function are measured at the main path's
-   shape (CUDA-graph replays timed with CUDA events).
+   float32 (its CUDA-core kernel) and 2e-2 in bfloat16 (its tensor-core
+   kernel, also at D = 96, D = 128 with GQA 8:1, and S and windows off
+   its tiles).  Each kernel's time, its plain version's time, its bound
+   and (K5, K6) the time of the one PyTorch call that computes the same
+   function are measured at the main path's shape (CUDA-graph replays
+   timed with CUDA events); K5 also at a decode step's 4 rows.
 3. Runs the ``upper_bound`` spec (paper Table II) on the GPU at its
    published iteration count, with every launch counter set to 0 just
    before and read just after: each of K1-K4 must have launched.
@@ -27,7 +30,10 @@
    ``make_prefill_step``, then ``greedy_generate`` of 24 tokens for 4
    requests of 16 prompt tokens, with the counters set to 0 just before
    and read just after: K6 must launch 26 times (once a layer) and K5
-   2173 times (53 per prefill and per decode step).
+   2173 times (53 per prefill and per decode step).  One more prefill
+   runs under ``torch.profiler``: the ten device kernels by total time
+   and the device's busy share of the window are printed ("not measured"
+   if the trace holds no device time).
 6. Checks the serving output: the prefill's next-token logits against the
    same prefill with no kernel (``attention_impl="reference"``) within
    2e-2 relative L2, and, in float32 on a 6-layer cut, the prefill's
@@ -304,25 +310,29 @@ def check_lm_kernels(dev):
             raise AssertionError(f"K5 rmsnorm differs at {n}x{d} {dtype}: "
                                  f"max {float(diff.max())}")
         err = max(err, float(diff.max()))
-    n, d = 8192, 1152
-    x, w = randn(n, d, dtype=torch.bfloat16), randn(d, dtype=torch.bfloat16)
-    nbytes = 2 * n * d * 2 + d * 2
-    bound, by = _bound_ms(nbytes, 4 * n * d)
-    ms, plain_ms, library_ms = _timed(
-        krms.rmsnorm_2d, krms.rmsnorm_plain, (x, w), nbytes,
-        library=lambda a, b: F.rms_norm(a, (d,), b, krms.EPS))
+    # times at the prefill's shape and at a decode step's (2120 of the
+    # serving run's 2173 launches are 4 rows)
+    timed = {}
+    for n, d in ((8192, 1152), (4, 1152)):
+        x = randn(n, d, dtype=torch.bfloat16)
+        w = randn(d, dtype=torch.bfloat16)
+        nbytes = 2 * n * d * 2 + d * 2
+        bound, by = _bound_ms(nbytes, 4 * n * d)
+        ms, plain_ms, library_ms = _timed(
+            krms.rmsnorm_2d, krms.rmsnorm_plain, (x, w), nbytes,
+            library=lambda a, b, d=d: F.rms_norm(a, (d,), b, krms.EPS))
+        timed[n] = {"shape": [n, d, "bf16"], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": by,
+                    "library_ms": library_ms}
     records["rmsnorm"] = {
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:20",
-        "max_abs_err": err, "shape": [n, d, "bf16"], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": library_ms}
+        "max_abs_err": err, **timed[8192], "decode": timed[4]}
 
     # K6: gemma3-1b's prefill (4 queries heads, 1 KV head, D = 256) with
     # and without its 1024 window, the reference's sweep shapes (ragged
     # S = 200, D = 48 with window 16) and the float32 serve-check shape
-    err = 0.0
     cases = [((4, 2048, 4, 1, 256, 0), torch.bfloat16),
              ((4, 2048, 4, 1, 256, 1024), torch.bfloat16),
              ((1, 1100, 4, 1, 256, 1024), torch.float32)]
@@ -330,6 +340,15 @@ def check_lm_kernels(dev):
              (2, 200, 4, 1, 64, 0), (1, 256, 8, 8, 128, 0),
              (2, 128, 4, 2, 64, 32), (1, 96, 6, 3, 48, 16)]
     cases += [(c, t) for t in (torch.float32, torch.bfloat16) for c in sweep]
+    # the bf16 kernel's edges: phi3's D = 96, D = 128 with GQA 8:1, a causal
+    # S and a window that are not multiples of its 64-column k tile, S
+    # shorter than one tile and than one 128-row q tile
+    cases += [(c, torch.bfloat16) for c in
+              [(1, 300, 4, 4, 96, 0), (2, 256, 16, 2, 128, 0),
+               (1, 1000, 8, 1, 128, 0), (1, 1000, 4, 1, 256, 100),
+               (2, 40, 4, 2, 64, 0), (1, 17, 2, 1, 256, 5),
+               (1, 1100, 4, 1, 256, 1024)]]
+    err_by_dtype = {"float32": 0.0, "bfloat16": 0.0}
     for (B, S, H, KV, D, window), dtype in cases:
         q = randn(B, S, H, D, dtype=dtype)
         k, v = randn(B, S, KV, D, dtype=dtype), randn(B, S, KV, D, dtype=dtype)
@@ -344,7 +363,8 @@ def check_lm_kernels(dev):
             raise AssertionError(f"K6 flash_attention differs at "
                                  f"{(B, S, H, KV, D, window)} {dtype}: max "
                                  f"{float(diff.max())}")
-        err = max(err, float(diff.max()))
+        key = str(dtype).split(".")[-1]
+        err_by_dtype[key] = max(err_by_dtype[key], float(diff.max()))
     # times per launch at the prefill's shape, both kinds of layer; the
     # record holds their mean over the prefill's 22 local + 4 global layers
     B, S, H, KV, D = 4, 2048, 4, 1, 256
@@ -369,7 +389,7 @@ def check_lm_kernels(dev):
             lambda a, b, c, w=window: kfa.flash_attention_bhsd(a, b, c, True,
                                                                w),
             lambda a, b, c, w=window: kfa.attention_plain(a, b, c, True, w),
-            (q, k, v), nbytes, library=library, reps=8)
+            (q, k, v), nbytes, library=library, reps=32)
         by_window[window] = {"layers": layers, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound, "bound_by": by,
                              "library_ms": library_ms, "gflop": nops / 1e9}
@@ -377,9 +397,14 @@ def check_lm_kernels(dev):
             for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     records["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
+        "routes": {"bfloat16": "flash_wgmma_kernel: wgmma on the tensor "
+                               "cores, TMA copies (the model's path, timed)",
+                   "float32": "flash_simt_kernel: CUDA cores"},
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
-        "max_abs_err": err, "shape": [B, H, S, D, KV, "bf16"],
+        "max_abs_err": max(err_by_dtype.values()),
+        "max_abs_err_by_dtype": err_by_dtype,
+        "shape": [B, H, S, D, KV, "bf16"],
         "bound_by": by_window[0]["bound_by"], "by_window": by_window,
         **mean}
     return records
@@ -436,7 +461,53 @@ def run_serve(dev):
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"on the serving path, expected {n}")
+    report["profile"] = _profile_prefill(prefill, params, batch)
     return report, launches, params, batch, logits
+
+
+def _profile_prefill(prefill, params, batch, top: int = 10):
+    """One more prefill, after the counted run, under ``torch.profiler``:
+    the ``top`` device kernels by total time and the device's busy share
+    of the window (the union of kernel intervals over the window's wall
+    time, host clock around work that ends in a synchronise).  Returns
+    "not measured" when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.time_range.end > e.time_range.start]
+    if not spans:
+        return "not measured"
+    by_name = {}
+    for name, start, end in spans:
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + end - start, count + 1)
+    busy = 0.0
+    cur_start = cur_end = None
+    for _, start, end in sorted(spans, key=lambda s: s[1]):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"window_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / wall_us,
+            "kernel_ms_total": sum(t for t, _ in by_name.values()) / 1e3,
+            "top_kernels": [{"name": name[:120], "ms": total / 1e3,
+                             "calls": count}
+                            for name, (total, count) in kernels]}
 
 
 def check_serve(dev, params, batch, logits):
@@ -537,6 +608,31 @@ def check_against_cpu(iters: int = 60):
     return report
 
 
+def _ptxas_summary(text: str):
+    """One line per kernel of ``nvcc -Xptxas -v``'s report: its name
+    (demangled where ``c++filt`` exists), registers and spills."""
+    lines, name = [], None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name, spills = line.split("'")[1], ""
+            try:
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True, timeout=30).stdout.strip()
+                name = name.replace("(anonymous namespace)::", "")
+                name = name[name.find(" ") + 1:name.find("(")]
+            except OSError:
+                pass
+        elif "spill" in line and name:
+            spills = line.strip()
+        elif "Used" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; "
+                         f"{spills}")
+            name = None
+        elif "error" in line or "Performance" in line:
+            lines.append(line.strip())
+    return lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -562,8 +658,15 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
+    ptxas = {name: subprocess.Popen(build.ptxas_command(name),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name in ("flash_attention.cu", "rmsnorm.cu")}
     build.extension()
     print(f"phase build: ok in {time.perf_counter() - t0:.2f}s", flush=True)
+    for name, proc in ptxas.items():
+        for line in _ptxas_summary(proc.communicate(timeout=600)[0]):
+            print(f"  ptxas {name}: {line}", flush=True)
 
     t0 = time.perf_counter()
     records = check_kernels(dev)
@@ -575,6 +678,8 @@ def main() -> int:
               f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}) "
               f"library_ms={rec['library_ms']} "
               f"max_abs_err={rec['max_abs_err']}", flush=True)
+    print(f"  rmsnorm at a decode step "
+          f"{json.dumps(records['rmsnorm']['decode'])}", flush=True)
     by_window = records["flash_attention"].pop("by_window")
     print(f"  flash_attention per launch by window {json.dumps(by_window)}",
           flush=True)
@@ -618,8 +723,11 @@ def main() -> int:
     t0 = time.perf_counter()
     report, serve_launches, params, batch, logits = run_serve(dev)
     print(f"phase serve: ok in {time.perf_counter() - t0:.2f}s gemma3-1b "
-          f"bf16 prefill 4x2048, greedy 4x(16+24) {json.dumps(report)} "
+          f"bf16 prefill 4x2048, greedy 4x(16+24) "
+          f"{json.dumps({k: v for k, v in report.items() if k != 'profile'})} "
           f"launches={serve_launches}", flush=True)
+    print(f"  prefill profile {json.dumps(report.pop('profile'))}",
+          flush=True)
     for name in SERVE_KERNELS:
         launches[name] = serve_launches[name]
 
@@ -632,8 +740,9 @@ def main() -> int:
     for name, rec in records.items():
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "routes", "max_abs_err_by_dtype", "decode")
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec}
                                   for rec in records.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

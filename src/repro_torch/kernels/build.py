@@ -22,6 +22,16 @@ BUILD_DIR = os.path.join(_HERE, os.pardir, os.pardir, os.pardir, "build",
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 
+def ptxas_command(name: str) -> list[str]:
+    """The ``nvcc`` command that compiles ``csrc/<name>`` alone with the
+    build's flags and ``-Xptxas -v``, printing each kernel's registers,
+    spills and shared memory to stderr; its object file is discarded."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
+    return [nvcc, *CUDA_FLAGS, "-Xptxas=-v", "-c",
+            os.path.join(_HERE, "csrc", name), "-o", os.devnull]
+
+
 @functools.lru_cache(maxsize=None)
 def extension():
     """The loaded ``repro_torch_kernels`` module (built on first call)."""

@@ -9,14 +9,21 @@ q (B, H, S, D) attends to k, v (B, KV, T, D); query head h reads key/value
 head ``h * KV // H`` (grouped-query attention, no repeat materialised).
 Scores are ``q.k / sqrt(D)`` in float32, masked from global indices
 (causal: ``col <= row``; ``window > 0``: ``col > row - window``); the
-softmax and P.V are float32 and the output is cast to q's type.  The plain
+running softmax is float32 and the output is cast to q's type.  The plain
 version :func:`attention_plain` is the counterpart of the reference's
 ``ref.attention_ref``.
 
-The kernel masks the ragged S and T edges itself, so nothing is padded;
-it reads any (batch, head, row) strides as long as the head dimension is
-contiguous, so the model's (B, S, H, D) tensors go in as transposed views
-without a copy.  On the card it is bound by operations.
+The type picks one of two hand-written kernels, and neither stands in for
+the other: bfloat16 (the model's path) runs both products on Hopper's
+tensor cores (``wgmma``, fed by TMA copies), with P rounded to bfloat16
+before P.V as FlashAttention does, and takes D a multiple of 16 up to
+256; float32 runs on CUDA cores with P.V in float32 (the tensor cores'
+float32 is TF32) and takes D a multiple of 4 up to 256.  Both mask the
+ragged S and T edges themselves, so nothing is padded, and read any
+(batch, head, row) strides as long as the head dimension is contiguous,
+so the model's (B, S, H, D) tensors go in as transposed views without a
+copy; in bfloat16 each row must start on 16 bytes (strides a multiple of
+8), as TMA requires.  On the card the function is bound by operations.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+# the head dimension each kernel takes: a multiple of this, up to 256
+HEAD_DIM_MULTIPLE = {torch.float32: 4, torch.bfloat16: 16}
 
 
 def attention_plain(q, k, v, causal=True, window=0):
@@ -69,26 +78,38 @@ def _check(q, k, v, causal):
     if k.shape[0] != B or Dk != D or KV < 1 or H % KV or T < 1:
         raise ValueError(f"flash_attention_bhsd: q {tuple(q.shape)} does "
                          f"not fit k/v {tuple(k.shape)}")
-    if D > MAX_HEAD_DIM or D % 4:
-        raise ValueError(f"flash_attention_bhsd: head dim {D} must be a "
-                         f"multiple of 4 and at most {MAX_HEAD_DIM}")
     if causal and S > T:
         raise ValueError(f"flash_attention_bhsd: causal rows beyond T={T} "
                          f"see no key (S={S})")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_bhsd: q, k, v must all be float32 "
                         f"or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    check_head_dim(D, q.dtype)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_bhsd: the head dimension of q, k "
                          "and v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
+            for t in (q, k, v)):
+        raise ValueError("flash_attention_bhsd: bfloat16 rows of q, k and v "
+                         "must start on 16 bytes (strides a multiple of 8)")
+
+
+def check_head_dim(D, dtype):
+    """Raise ValueError unless the kernel for ``dtype`` takes head dim D."""
+    m = HEAD_DIM_MULTIPLE[dtype]
+    if D > MAX_HEAD_DIM or D % m:
+        raise ValueError(f"flash_attention_bhsd: {dtype} head dim {D} must "
+                         f"be a multiple of {m} and at most {MAX_HEAD_DIM}")
 
 
 def flash_attention_bhsd(q, k, v, causal=True, window=0):
     """K6: q (B, H, S, D), k, v (B, KV, T, D) -> (B, H, S, D) in q's type.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (float32 or bfloat16, D a multiple of 4 up to 256, head dimension
-    contiguous, any other strides).  The output is laid out (B, S, H, D) in
+    of its type (bfloat16: D a multiple of 16 up to 256, rows on 16 bytes;
+    float32: D a multiple of 4 up to 256; head dimension contiguous, any
+    other strides).  The output is laid out (B, S, H, D) in
     memory and returned as its (B, H, S, D) view."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal, window)

@@ -110,6 +110,41 @@ def test_flash_attention_kernel_matches_plain(cuda_device):
     assert kernels.launch_counts()["flash_attention"] == 2 * len(cases)
 
 
+# the bf16 tensor-core kernel's edges: phi3's D = 96, D = 128 with GQA 8:1,
+# a causal S (1000) and a window (100) off its 64-column k tile and 128-row
+# q tile, and S shorter than one k tile
+BF16_EDGE_CASES = [
+    (1, 300, 4, 4, 96, 0),
+    (2, 256, 16, 2, 128, 0),
+    (1, 1000, 8, 1, 128, 0),
+    (1, 1000, 4, 1, 256, 100),
+    (2, 1000, 8, 1, 96, 100),
+    (2, 40, 4, 2, 64, 0),
+    (1, 17, 2, 1, 256, 5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,window", BF16_EDGE_CASES)
+def test_flash_attention_bf16_edges_match_plain(B, S, H, KV, D, window,
+                                                cuda_device):
+    """The bf16 K6 (wgmma, P rounded to bf16) within 2e-2 of the plain
+    version, the same bound as at gemma3-1b's shapes."""
+    kernels.reset_launch_counts()
+    g = torch.Generator(device=cuda_device).manual_seed(S * D + window)
+    q, k, v = (torch.randn(B, S, n, D, device=cuda_device,
+                           generator=g).to(torch.bfloat16)
+               for n in (H, KV, KV))
+    a = kfa.flash_attention(q, k, v, True, window).float()
+    b = kfa.attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), True,
+                            window).transpose(1, 2).float()
+    assert bool(torch.isfinite(a).all())
+    assert bool(((a - b).abs() <= 2e-2 + 2e-2 * b.abs()).all()), \
+        float((a - b).abs().max())
+    assert kernels.launch_counts()["flash_attention"] == 1
+
+
 @pytest.mark.cuda
 def test_kernels_reject_bad_inputs(cuda_device):
     x = torch.rand(4, 5, device=cuda_device)
@@ -133,6 +168,21 @@ def test_kernels_reject_bad_inputs(cuda_device):
         kfa.flash_attention_bhsd(q[..., :30], kv[..., :30], kv[..., :30])
     with pytest.raises(TypeError):
         kfa.flash_attention_bhsd(q.double(), kv.double(), kv.double())
+    # D = 36: the float32 kernel takes it, the bf16 one (D % 16) does not
+    q36 = torch.rand(1, 2, 8, 36, device=cuda_device)
+    kv36 = torch.rand(1, 1, 8, 36, device=cuda_device)
+    out = kfa.flash_attention_bhsd(q36, kv36, kv36)
+    torch.cuda.synchronize()
+    assert out.shape == q36.shape and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError):
+        kfa.flash_attention_bhsd(q36.bfloat16(), kv36.bfloat16(),
+                                 kv36.bfloat16())
+    # bf16 rows that do not start on 16 bytes
+    qb = torch.rand(1, 2, 8, 40, device=cuda_device).bfloat16()
+    kvb = torch.rand(1, 1, 8, 40, device=cuda_device).bfloat16()
+    with pytest.raises(ValueError):
+        kfa.flash_attention_bhsd(qb[..., 4:36], kvb[..., 4:36],
+                                 kvb[..., 4:36])
 
 
 @pytest.mark.cuda

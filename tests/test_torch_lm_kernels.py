@@ -74,6 +74,9 @@ ATTN_CASES = [
     (2, 128, 4, 2, 64, 32),       # sliding window
     (1, 96, 6, 3, 48, 16),        # odd head dim / window
     (1, 160, 4, 1, 256, 48),      # gemma3's head dim, GQA 4:1, window
+    (1, 100, 4, 4, 96, 0),        # phi3's head dim
+    (1, 72, 16, 2, 128, 0),       # GQA 8:1
+    (1, 150, 2, 1, 64, 20),       # S and window off the 64-column k tile
 ]
 
 
@@ -114,3 +117,27 @@ def test_attention_plain_not_causal():
                              causal=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,D,ok", [
+    (torch.bfloat16, 256, True), (torch.bfloat16, 96, True),
+    (torch.bfloat16, 48, True), (torch.bfloat16, 16, True),
+    (torch.bfloat16, 36, False), (torch.bfloat16, 40, False),
+    (torch.bfloat16, 272, False), (torch.float32, 36, True),
+    (torch.float32, 256, True), (torch.float32, 30, False),
+    (torch.float32, 260, False)])
+def test_head_dim_rule_per_kernel(dtype, D, ok):
+    """The bf16 tensor-core kernel takes D a multiple of 16 up to 256, the
+    float32 CUDA-core kernel a multiple of 4 up to 256; every head
+    dimension of the configs fits the bf16 rule."""
+    if ok:
+        kfa.check_head_dim(D, dtype)
+    else:
+        with pytest.raises(ValueError):
+            kfa.check_head_dim(D, dtype)
+
+
+def test_config_head_dims_fit_the_bf16_kernel():
+    from repro_torch.configs.registry import ARCH_IDS, get_arch
+    for name in ARCH_IDS:
+        kfa.check_head_dim(get_arch(name).resolved_head_dim, torch.bfloat16)
