@@ -5,11 +5,15 @@
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    CUDA extension from ``src/repro_torch/kernels/csrc``, printing the
-   build time; beside the build, ``nvcc -Xptxas -v`` compiles the K5 and
-   K6 sources alone and each kernel's registers and spills are printed.
+   build time; beside the build, ``nvcc -Xptxas -v`` compiles the
+   quantize, K5 and K6 sources alone and each kernel's registers and
+   spills are printed.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its main path gives it and at ragged ones: K1-K3 must agree
-   exactly, K4 within one float32 ulp, K5 (RMSNorm) within 1e-6 in
+   exactly, K4 within one float32 ulp, the fused ECD-PSGD compression tail
+   (``ecd_compress_rows``, K3 and K4 with the step's updates) exactly in
+   x_new and y_new for 4, 8 and 16 bits at t = 0, 1 and 2999, NaN where
+   the plain version has NaN, K5 (RMSNorm) within 1e-6 in
    float32 and one ulp in bfloat16, K6 (flash attention) within 2e-5 in
    float32 (its CUDA-core kernel) and 2e-2 in bfloat16 (its tensor-core
    kernel, also at D = 96, D = 128 with GQA 8:1, and S and windows off
@@ -19,7 +23,13 @@
    timed with CUDA events); K5 also at a decode step's 4 rows.
 3. Runs the ``upper_bound`` spec (paper Table II) on the GPU at its
    published iteration count, with every launch counter set to 0 just
-   before and read just after: each of K1-K4 must have launched.
+   before and read just after: K1 and K2 must have launched, the fused
+   kernel once per ECD-PSGD step (9000 times), and K3 and K4, which it
+   replaces there, never.  Then 300 ECD-PSGD steps of the sweep's 32-row
+   bucket go straight through ``alg.step`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` (any synchronising call
+   raises), 300 more are timed, and 100 more run under ``torch.profiler``:
+   device kernels per step and the device's busy share are printed.
 4. Checks the output: a short ``upper_bound`` run on the GPU must agree
    with the same run on the CPU (the plain versions) — characters to
    1e-6 relative, curves to 1e-5, every value finite; ECD-PSGD, whose
@@ -62,8 +72,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
 
-SWEEP_KERNELS = ("l0_rows", "l0_shift_sum", "quantize_rows",
-                 "dequantize_rows")
+SWEEP_KERNELS = ("l0_rows", "l0_shift_sum", "ecd_compress_rows")
+# replaced on the sweep's path by ecd_compress_rows; checked standalone
+FUSED_AWAY = ("quantize_rows", "dequantize_rows")
 SERVE_KERNELS = ("rmsnorm", "flash_attention")
 
 
@@ -258,7 +269,89 @@ def check_kernels(dev):
         "max_abs_err": err4, "shape": [r, d, 8], "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
         "library_ms": None}
+    for name in FUSED_AWAY:
+        records[name]["note"] = ("off the sweep's path: ecd_compress_rows "
+                                 "fuses it with the step's updates")
+    records["ecd_compress_rows"] = check_ecd_compress(dev)
     return records
+
+
+def _tail_inputs(dev, r, d, seed, offset=0):
+    """grads, x_half, xs, ys, u as (r, d) float32 on the card; row 0 of
+    the first three is zero (so is its z) when r > 1.  ``offset`` floats
+    before each row block leave the rows off 16-byte alignment."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat = [torch.randn(offset + r * d, generator=gen, device=dev) * s
+            for s in (0.5, 0.2, 0.2, 0.1)]
+    flat.append(torch.rand(offset + r * d, generator=gen, device=dev))
+    ins = [a[offset:].view(r, d) for a in flat]
+    if r > 1:
+        for a in ins[:3]:
+            a[0] = 0.0
+    return ins
+
+
+def check_ecd_compress(dev):
+    """Phase 2, the fused ECD-PSGD compression tail against its plain
+    version: x_new and y_new equal (``torch.equal``) at the sweep's 8, 32
+    and 24 rows of d = 28, the ragged shapes of K3's check, rows wider
+    than one warp's registers (the two-pass kernel), rows off 16-byte
+    alignment (scalar loads) and an all-zero row, for 4, 8 and 16 bits at
+    t = 0, 1 and 2999; rows holding NaN or inf give NaN where the plain
+    version does.  Returns its record (without launch count)."""
+    import torch
+    from repro_torch.kernels import quantize as kq
+
+    cases = [((8, 28), 0), ((32, 28), 0), ((24, 28), 0), ((5, 1000), 0),
+             ((1, 112000), 0), ((3, 1), 0), ((7, 30), 0), ((3, 999), 0),
+             ((4, 1024), 0), ((2, 1025), 0), ((32, 28), 1), ((5, 1000), 1)]
+    err = 0.0
+    for i, ((r, d), offset) in enumerate(cases):
+        ins = _tail_inputs(dev, r, d, 500 + i, offset)
+        for bits in (4, 8, 16):
+            for t in (0, 1, 2999):
+                got = kq.ecd_compress_rows(*ins, 0.1, t, bits)
+                want = kq.ecd_compress_rows_plain(*ins, 0.1, t, bits)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("x_new", "y_new"), got, want):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"ecd_compress_rows {name} differs at r={r} "
+                            f"d={d} offset={offset} bits={bits} t={t}: max "
+                            f"{float((a - b).abs().max())}")
+                    err = max(err, float((a - b).abs().max()))
+    # a NaN in one row's gradient and an inf in another's model: the row
+    # maximum must carry them as torch.amax does
+    ins = _tail_inputs(dev, 8, 28, 600)
+    ins[0][2, 5] = math.nan
+    ins[2][4, 7] = math.inf
+    for bits in (4, 8, 16):
+        got = kq.ecd_compress_rows(*ins, 0.1, 7, bits)
+        want = kq.ecd_compress_rows_plain(*ins, 0.1, 7, bits)
+        for a, b in zip(got, want):
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            if not bool(same.all()):
+                raise AssertionError(f"ecd_compress_rows differs on NaN/inf "
+                                     f"rows at bits={bits}")
+        if not bool(torch.isnan(got[1][[2, 4]]).all()):
+            raise AssertionError("ecd_compress_rows: a NaN or inf row did "
+                                 "not give a NaN y_new row")
+    r, d = 32, 28
+    ins = _tail_inputs(dev, r, d, 700)
+    nbytes = 7 * r * d * 4
+    bound, by = _bound_ms(nbytes, 21 * r * d)
+    ms, plain_ms = _timed(lambda *a: kq.ecd_compress_rows(*a, 0.1, 1500, 8),
+                          lambda *a: kq.ecd_compress_rows_plain(*a, 0.1, 1500,
+                                                                8),
+                          tuple(ins), nbytes)
+    return {"name": "ecd_compress_rows", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantize.cu",
+            "replaces": "src/repro/kernels/quantize.py:25",
+            "also_replaces": "src/repro/kernels/quantize.py:34",
+            "max_abs_err": err, "shape": [r, d, 8], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
 
 
 def _bf16_ulp(x):
@@ -461,16 +554,17 @@ def run_serve(dev):
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"on the serving path, expected {n}")
-    report["profile"] = _profile_prefill(prefill, params, batch)
+    report["profile"] = _profile(lambda: prefill(params, batch))
     return report, launches, params, batch, logits
 
 
-def _profile_prefill(prefill, params, batch, top: int = 10):
-    """One more prefill, after the counted run, under ``torch.profiler``:
-    the ``top`` device kernels by total time and the device's busy share
-    of the window (the union of kernel intervals over the window's wall
-    time, host clock around work that ends in a synchronise).  Returns
-    "not measured" when the trace holds no device time."""
+def _profile(fn, top: int = 10):
+    """``fn()`` under ``torch.profiler``: the ``top`` device kernels by
+    total time, the device's busy share of the window (the union of kernel
+    intervals over the window's wall time, host clock around work that
+    ends in a synchronise), and the count of device kernels and of copies
+    and fills.  Returns "not measured" when the trace holds no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -478,7 +572,7 @@ def _profile_prefill(prefill, params, batch, top: int = 10):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prefill(params, batch)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = [(e.name, e.time_range.start, e.time_range.end)
@@ -501,13 +595,88 @@ def _profile_prefill(prefill, params, batch, top: int = 10):
         else:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
+    copies = sum(1 for name, _, _ in spans
+                 if name.startswith(("Memcpy", "Memset")))
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {"window_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us,
             "kernel_ms_total": sum(t for t, _ in by_name.values()) / 1e3,
+            "device_kernels": len(spans) - copies, "device_copies": copies,
             "top_kernels": [{"name": name[:120], "ms": total / 1e3,
                              "calls": count}
                             for name, (total, count) in kernels]}
+
+
+def run_sweep_steps(dev, steps: int = 300):
+    """Phase 3b: ECD-PSGD steps of upper_bound's 32-row bucket (members
+    m = 8 and 16 at pad width 16 on its dense dataset, d = 28) straight
+    through ``alg.step``, after 20 warm-up steps: (a) ``steps`` steps under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any call
+    that synchronises, with the launch counters set to 0 just before and
+    read just after; (b) ``steps`` more timed on the host clock, ending in
+    a synchronise; (c) 100 more under ``torch.profiler``."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch.core import problems
+    from repro_torch.core.algorithms import base as alg_base
+    from repro_torch.experiments import engine, registry
+    from repro_torch.experiments import spec as spec_mod
+
+    spec = registry.get_spec("upper_bound")
+    job = next(j for j in spec.jobs if j.algorithm == "ecd_psgd")
+    ds = spec.datasets[job.dataset]
+    train, _ = spec_mod.split_dataset(ds, spec_mod.build_dataset(ds, dev),
+                                      spec.split_seed)
+    alg = alg_base.get_algorithm(job.algorithm)(**job.kwargs)
+    prob = problems.resolve_problem(job.problem)
+    # the engine runs the grid (2, 4, 8, 16, 24) as buckets (2, 4) at pad
+    # width 4, (8, 16) at 16 and (24,) at 24: 8, 32 and 24 worker rows
+    members, m_pad = (8, 16), 16
+    n, d = train.X.shape
+    warm, profiled = 20, 100
+    iters = warm + 2 * steps + profiled
+    draws = alg.make_draws(R.PRNGKey(0, device=dev), n, iters, max(spec.ms),
+                           d)
+    ctx, state, per_elem = engine.prepare_bucket(alg, prob, train, members,
+                                                 m_pad, [draws])
+    batches = [alg_base.map_draws(lambda a: a[t], per_elem)
+               for t in range(iters)]
+
+    def run(lo, hi):
+        nonlocal state
+        for t in range(lo, hi):
+            state = alg.step(prob, train, ctx, state, batches[t], t)
+
+    run(0, warm)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(warm, warm + steps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches != {**{k: 0 for k in launches}, "ecd_compress_rows": steps}:
+        raise AssertionError(f"{steps} ECD-PSGD steps launched {launches}")
+    t0 = time.perf_counter()
+    run(warm + steps, warm + 2 * steps)
+    torch.cuda.synchronize()
+    step_us = (time.perf_counter() - t0) * 1e6 / steps
+    prof = _profile(lambda: run(warm + 2 * steps, iters))
+    xs, ys = state
+    if xs.shape != (len(members), m_pad, d) or ys.shape != xs.shape or \
+            not bool(torch.isfinite(xs).all() & torch.isfinite(ys).all()):
+        raise AssertionError("ECD-PSGD state is malformed or not finite")
+    report = {"rows": len(members) * m_pad, "d": d,
+              "sync_free_steps": steps, "launches": launches,
+              "host_us_per_step": step_us, "profiled_steps": profiled}
+    if isinstance(prof, dict):
+        report["device_kernels_per_step"] = prof["device_kernels"] / profiled
+        report["device_copies_per_step"] = prof["device_copies"] / profiled
+        report["device_busy_share"] = prof["device_busy_share"]
+    return report, prof
 
 
 def check_serve(dev, params, batch, logits):
@@ -619,7 +788,8 @@ def _ptxas_summary(text: str):
                 name = subprocess.run(["c++filt", name], capture_output=True,
                                       text=True, timeout=30).stdout.strip()
                 name = name.replace("(anonymous namespace)::", "")
-                name = name[name.find(" ") + 1:name.find("(")]
+                name = name.removeprefix("void ")
+                name = name[:name.find("(")]
             except OSError:
                 pass
         elif "spill" in line and name:
@@ -661,7 +831,7 @@ def main() -> int:
     ptxas = {name: subprocess.Popen(build.ptxas_command(name),
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
-             for name in ("flash_attention.cu", "rmsnorm.cu")}
+             for name in ("quantize.cu", "flash_attention.cu", "rmsnorm.cu")}
     build.extension()
     print(f"phase build: ok in {time.perf_counter() - t0:.2f}s", flush=True)
     for name, proc in ptxas.items():
@@ -695,7 +865,9 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
         stored = os.path.exists(result["cache"]["path"])
+    ecd_key = next(j.key for j in spec.jobs if j.algorithm == "ecd_psgd")
     print(f"phase upper_bound: iters={spec.iters} wall_s={wall:.3f} "
+          f"ecd_psgd_job_s={result['timings'][ecd_key]:.3f} "
           f"artifact_stored={stored} launches={launches}", flush=True)
     print(f"  timings_s {json.dumps(result['timings'])}", flush=True)
     for name, info in result["datasets"].items():
@@ -714,6 +886,17 @@ def main() -> int:
     missing = [k for k in SWEEP_KERNELS if launches[k] == 0]
     if missing:
         return _fail(f"kernels never launched on the main path: {missing}")
+    # one fused launch per ECD-PSGD step: three buckets of the grid
+    if launches["ecd_compress_rows"] != 3 * spec.iters or \
+            any(launches[k] for k in FUSED_AWAY):
+        return _fail(f"ECD-PSGD's steps did not each launch the fused "
+                     f"kernel once: {launches}")
+
+    t0 = time.perf_counter()
+    steps, steps_profile = run_sweep_steps(dev)
+    print(f"phase sweep-steps: ok in {time.perf_counter() - t0:.2f}s "
+          f"{json.dumps(steps)}", flush=True)
+    print(f"  sweep-step profile {json.dumps(steps_profile)}", flush=True)
 
     t0 = time.perf_counter()
     agreement = check_against_cpu()
@@ -741,7 +924,8 @@ def main() -> int:
         rec["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "routes", "max_abs_err_by_dtype", "decode")
+            "also_replaces", "note", "routes", "max_abs_err_by_dtype",
+            "decode")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec}
                                   for rec in records.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,12 @@
 
 m workers on a ring (W = I/3 + ring neighbours/3), each holding its own
 model x^(i) and exchanging compressed intermediate variables y^(i).  The
-compression C(.) is stochastic quantization with one scale per worker:
-each step quantizes all members' worker rows, ``(B * m_pad, d)``, in one
-call — per-row ``torch.amax`` scales, then K3, then K4.  The noise for
+compression C(.) is stochastic quantization with one scale per worker.
+After the mixing product and the gradients, the rest of a step — the
+x update, the extrapolation z, C(z) on all members' worker rows
+``(B * m_pad, d)`` and the y update — is one call of
+``kernels.quantize.ecd_compress_rows``: one kernel launch on the card,
+its plain version on the CPU.  The noise for
 worker w at iteration t is ``uniform(split(fold_in(k_q, t), m_top)[w])``,
 the reference's per-(iteration, worker) keys, drawn for the whole run in
 ``make_draws``.
@@ -16,12 +19,10 @@ from __future__ import annotations
 import dataclasses
 from typing import ClassVar
 
-import numpy as np
 import torch
 
 from repro_torch import random as R
-from repro_torch.core import compression
-from repro_torch.core.numerics import fma
+from repro_torch.kernels import quantize as kq
 from repro_torch.core.algorithms.base import (Algorithm, SimContext,
                                               register_algorithm)
 
@@ -65,22 +66,13 @@ class EcdPsgd(Algorithm):
     def step(self, problem, data, ctx: SimContext, state, batch, t):
         xs, ys = state                       # (B, m_pad, d) models / y-vars
         idx, u = batch["order"], batch["u"]
-        # float32 step coefficients, rounded as the reference rounds them
-        tf = np.float32(t + 1)
-        half = float(tf / np.float32(2.0))
-        two_t = np.float32(2.0) / tf
         x_half = torch.bmm(ctx.W, ys)        # neighbours pull compressed y
         grads = problem.point_grad(xs, data.X[idx], data.y[idx])
-        x_new = fma(-self.gamma, grads, x_half)
-        # z = (1 - t/2) x_t + (t/2) x_{t+1};  y = (1-2/t) y + (2/t) C(z)
-        z = fma(1.0 - half, xs, half * x_new)
-        B, m_pad, d = z.shape
-        q, scale = compression.quantize_rows_stochastic(
-            z.reshape(B * m_pad, d), u.reshape(B * m_pad, d),
-            bits=self.compress_bits)
-        cz = compression.dequantize_rows(q, scale).reshape(B, m_pad, d)
-        y_new = fma(float(np.float32(1.0) - two_t), ys, float(two_t) * cz)
-        return (x_new, y_new)
+        B, m_pad, d = xs.shape
+        x_new, y_new = kq.ecd_compress_rows(
+            *(a.reshape(B * m_pad, d) for a in (grads, x_half, xs, ys, u)),
+            self.gamma, t, self.compress_bits)
+        return (x_new.reshape(B, m_pad, d), y_new.reshape(B, m_pad, d))
 
     def readout(self, ctx: SimContext, state):
         # mean over live workers

@@ -5,29 +5,20 @@ Unbiased (E[dequantize(quantize(x))] = x, the paper's Eq. 7) stochastic
 rounding to ``bits``-bit integers.  The uniform noise ``u`` is an input,
 drawn by the caller with `repro_torch.random`, so the operator is
 deterministic given its inputs.  The scale is ``max(max|x|, 1e-12) /
-qmax``, the maximum taken with ``torch.amax``; the elementwise passes go
-through K3 and K4 (`repro_torch.kernels.quantize`), which run their plain
-versions on CPU tensors.  :func:`quantize_rows_stochastic` gives each row of a
-2-D input its own scale — ECD-PSGD's per-worker compression in one call;
-:func:`quantize_stochastic` is the per-tensor (one-row) case.
+qmax``, the maximum taken with ``torch.amax`` (:func:`row_scales`); the
+elementwise passes go through K3 and K4 (`repro_torch.kernels.quantize`),
+which run their plain versions on CPU tensors.  ECD-PSGD's step does not
+come here: it calls the fused kernel ``kernels.quantize.
+ecd_compress_rows``.  :func:`quantize_rows_stochastic` gives each row of a
+2-D input its own scale; :func:`quantize_stochastic` is the per-tensor
+(one-row) case.
 """
 
 from __future__ import annotations
 
-import torch
-
 from repro_torch.kernels import quantize as kq
 
-
-def row_scales(x2, bits: int = 8):
-    """Per-row scale ``max(max_k |x_rk|, 1e-12) / qmax`` as float32 (r,).
-    The division is an IEEE float32 division, as in the reference's
-    engine; it divides by a tensor on x's device because PyTorch on CUDA
-    turns a division by a Python number into a multiply by its
-    reciprocal."""
-    qmax = torch.tensor(kq.qmax_of(bits), dtype=torch.float32,
-                        device=x2.device)
-    return torch.clamp_min(torch.abs(x2).amax(dim=1), 1e-12) / qmax
+row_scales = kq.row_scales
 
 
 def quantize_rows_stochastic(x2, u, *, bits=8):
@@ -53,3 +44,10 @@ def quantize_stochastic(x, u, *, bits=8):
 def dequantize(q, scale):
     x = dequantize_rows(q.reshape(1, -1), scale.reshape(1))
     return x.reshape(q.shape)
+
+
+def quantize_error(x, u, *, bits=8):
+    """C(x) - x: the error of one stochastic quantization of ``x`` with
+    noise ``u`` (one scale for the whole tensor), float32."""
+    q, scale = quantize_stochastic(x, u, bits=bits)
+    return dequantize(q, scale) - x.float()

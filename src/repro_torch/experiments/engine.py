@@ -79,13 +79,14 @@ def _buckets(ms: Sequence[int],
     return out
 
 
-def _simulate(alg, prob, train, test, members: Sequence[int], m_pad: int,
-              draws_by_seed, iters: int, eval_every: int) -> torch.Tensor:
-    """Run ``members`` x seeds as one batch at pad width ``m_pad``;
-    returns losses (len(members), n_seeds, n_evals)."""
+def prepare_bucket(alg, prob, train, members: Sequence[int], m_pad: int,
+                   draws_by_seed):
+    """The batch of ``members`` x seeds at pad width ``m_pad``: returns
+    ``(ctx, state, per_elem)``, where ``per_elem`` holds the draws with
+    iteration leading, ``(iters, B, ...)``, so that iteration t's batch is
+    ``map_draws(lambda a: a[t], per_elem)``."""
     dev = train.X.device
     n_seeds = len(draws_by_seed)
-    B = len(members) * n_seeds
     # element b = (member b // n_seeds, seed b % n_seeds)
     m = torch.tensor(members, dtype=torch.int64,
                      device=dev).repeat_interleave(n_seeds)
@@ -98,18 +99,26 @@ def _simulate(alg, prob, train, test, members: Sequence[int], m_pad: int,
     # (iters, B, ...): iteration t's draws for every element, contiguous
     per_elem = alg_base.map_draws(
         lambda a: a[seed_of].movedim(1, 0).contiguous(), stacked)
-
     ctx = alg_base.SimContext(m, m_pad)
-    state = alg.init_state(prob, train, ctx)
+    return ctx, alg.init_state(prob, train, ctx), per_elem
+
+
+def _simulate(alg, prob, train, test, members: Sequence[int], m_pad: int,
+              draws_by_seed, iters: int, eval_every: int) -> torch.Tensor:
+    """Run ``members`` x seeds as one batch at pad width ``m_pad``;
+    returns losses (len(members), n_seeds, n_evals)."""
+    ctx, state, per_elem = prepare_bucket(alg, prob, train, members, m_pad,
+                                          draws_by_seed)
+    B = ctx.m.shape[0]
     n_evals = iters // eval_every
-    losses = torch.empty(B, n_evals, device=dev)
+    losses = torch.empty(B, n_evals, device=train.X.device)
     for e in range(n_evals):
         for t in range(e * eval_every, (e + 1) * eval_every):
             state = alg.step(prob, train, ctx, state,
                              alg_base.map_draws(lambda a: a[t], per_elem), t)
         losses[:, e] = prob.test_loss(alg.readout(ctx, state), test.X,
                                       test.y)
-    return losses.reshape(len(members), n_seeds, n_evals)
+    return losses.reshape(len(members), len(draws_by_seed), n_evals)
 
 
 def sweep(algorithm: Union[str, alg_base.Algorithm], train, test,

@@ -4,6 +4,8 @@
   ``csim.l0_shift_sum``       K2, per-batch L0 totals over cyclic shifts
   ``quantize.quantize_rows``  K3, row-scaled stochastic quantization
   ``quantize.dequantize_rows``  K4, row-scaled dequantization
+  ``quantize.ecd_compress_rows``  K3 and K4 fused with ECD-PSGD's updates,
+                              one launch per step (the sweep's path)
   ``rmsnorm.rmsnorm_2d``      K5, fused RMSNorm (``rmsnorm.rmsnorm``: any rank)
   ``flash_attention.flash_attention_bhsd``  K6, causal / sliding-window GQA
                               flash attention (``flash_attention.
@@ -13,7 +15,7 @@ Each wrapper runs its plain version on a CPU tensor and launches its
 kernel on a CUDA tensor (building the extension on first use); it never
 falls back from one to the other.  ``wrapper.launches`` counts kernel
 launches.  :func:`launch_counts` / :func:`reset_launch_counts` read and
-clear all six counters.
+clear all seven counters.
 """
 
 from repro_torch.kernels import csim, flash_attention, quantize, rmsnorm
@@ -23,6 +25,7 @@ WRAPPERS = {
     "l0_shift_sum": csim.l0_shift_sum,
     "quantize_rows": quantize.quantize_rows,
     "dequantize_rows": quantize.dequantize_rows,
+    "ecd_compress_rows": quantize.ecd_compress_rows,
     "rmsnorm": rmsnorm.rmsnorm_2d,
     "flash_attention": flash_attention.flash_attention_bhsd,
 }

@@ -21,6 +21,12 @@ int repro_quantize_rows(const float* x, const float* u, const float* scale,
                         int qbytes, void* stream);
 int repro_dequantize_rows(const void* q, const float* scale, float* out,
                           int64_t rows, int64_t d, int qbytes, void* stream);
+int repro_ecd_compress_rows(const float* g, const float* xh, const float* xs,
+                            const float* ys, const float* u, float* x_new,
+                            float* y_new, int64_t rows, int64_t d,
+                            double neg_gamma, double z_keep, double y_keep,
+                            float half, float two_t, float qmax,
+                            void* stream);
 int repro_rmsnorm(const void* x, const void* gain, void* out, int64_t n,
                   int64_t d, float eps, int dtype, void* stream);
 int repro_flash_attention(const void* q, const void* k, const void* v,
@@ -92,6 +98,26 @@ PyObject* dequantize_rows(PyObject*, PyObject* args) {
   return PyLong_FromLong(err);
 }
 
+// ecd_compress_rows(grads, x_half, xs, ys, u, x_new, y_new, rows, d,
+// neg_gamma, z_keep, y_keep, half, two_t, qmax, stream)
+PyObject* ecd_compress_rows(PyObject*, PyObject* args) {
+  unsigned long long g, xh, xs, ys, u, x_new, y_new, stream;
+  long long rows, d;
+  double neg_gamma, z_keep, y_keep;
+  float half, two_t, qmax;
+  if (!PyArg_ParseTuple(args, "KKKKKKKLLdddfffK", &g, &xh, &xs, &ys, &u,
+                        &x_new, &y_new, &rows, &d, &neg_gamma, &z_keep,
+                        &y_keep, &half, &two_t, &qmax, &stream)) {
+    return nullptr;
+  }
+  int err = repro_ecd_compress_rows(
+      ptr<const float>(g), ptr<const float>(xh), ptr<const float>(xs),
+      ptr<const float>(ys), ptr<const float>(u), ptr<float>(x_new),
+      ptr<float>(y_new), rows, d, neg_gamma, z_keep, y_keep, half, two_t,
+      qmax, ptr<void>(stream));
+  return PyLong_FromLong(err);
+}
+
 PyObject* rmsnorm(PyObject*, PyObject* args) {
   unsigned long long x, gain, out, stream;
   long long n, d;
@@ -139,6 +165,8 @@ PyMethodDef kMethods[] = {
      "K3: row-scaled stochastic quantization"},
     {"dequantize_rows", dequantize_rows, METH_VARARGS,
      "K4: row-scaled dequantization"},
+    {"ecd_compress_rows", ecd_compress_rows, METH_VARARGS,
+     "K3+K4 fused with ECD-PSGD's updates: one launch per step"},
     {"rmsnorm", rmsnorm, METH_VARARGS, "K5: fused RMSNorm over rows"},
     {"flash_attention", flash_attention, METH_VARARGS,
      "K6: causal / sliding-window GQA flash attention forward"},

@@ -58,7 +58,94 @@ def test_cuda_kernels_match_plain(cuda_device):
             assert bool((torch.abs(a - b) <= ulp).all())
     assert kernels.launch_counts() == {
         "l0_rows": 6, "l0_shift_sum": 3, "quantize_rows": 6,
-        "dequantize_rows": 6, "rmsnorm": 0, "flash_attention": 0}
+        "dequantize_rows": 6, "ecd_compress_rows": 0, "rmsnorm": 0,
+        "flash_attention": 0}
+
+
+def _tail_inputs(dev, r, d, seed, offset=0):
+    """grads, x_half, xs, ys, u (r, d) on the card; row 0 of the first
+    three zero when r > 1; ``offset`` floats leave rows unaligned."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = [torch.randn(offset + r * d, generator=g, device=dev) * s
+            for s in (0.5, 0.2, 0.2, 0.1)]
+    flat.append(torch.rand(offset + r * d, generator=g, device=dev))
+    ins = [a[offset:].view(r, d) for a in flat]
+    if r > 1:
+        for a in ins[:3]:
+            a[0] = 0.0
+    return ins
+
+
+# the sweep's 8, 32 and 24 rows of d = 28, ragged shapes, the scalar-load
+# path (d % 4 != 0, or rows off 16 bytes), 32 floats a lane (d = 999),
+# the widest warp row (1024) and the two-pass kernel (d > 1024)
+ECD_TAIL_CASES = [(8, 28, 0), (32, 28, 0), (24, 28, 0), (5, 1000, 0),
+                  (1, 112000, 0), (3, 1, 0), (7, 30, 0), (3, 999, 0),
+                  (4, 1024, 0), (2, 1025, 0), (32, 28, 1), (5, 1000, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,d,offset", ECD_TAIL_CASES)
+def test_ecd_compress_kernel_matches_plain(r, d, offset, cuda_device):
+    """The fused ECD-PSGD compression tail equals its plain version in
+    x_new and y_new, bit for bit, for 4, 8 and 16 bits at t = 0, 1, 2999."""
+    kernels.reset_launch_counts()
+    ins = _tail_inputs(cuda_device, r, d, r * d + offset, offset)
+    for bits in (4, 8, 16):
+        for t in (0, 1, 2999):
+            got = kq.ecd_compress_rows(*ins, 0.1, t, bits)
+            want = kq.ecd_compress_rows_plain(*ins, 0.1, t, bits)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (bits, t)
+    assert kernels.launch_counts()["ecd_compress_rows"] == 9
+
+
+@pytest.mark.cuda
+def test_ecd_compress_kernel_propagates_nan(cuda_device):
+    """A NaN gradient and an inf model make their rows' y_new NaN, as the
+    plain version's torch.amax makes them."""
+    ins = _tail_inputs(cuda_device, 8, 28, 3)
+    ins[0][2, 5] = math.nan
+    ins[2][4, 7] = math.inf
+    for bits in (4, 8, 16):
+        got = kq.ecd_compress_rows(*ins, 0.1, 7, bits)
+        want = kq.ecd_compress_rows_plain(*ins, 0.1, 7, bits)
+        for a, b in zip(got, want):
+            assert bool(((a == b) | (a.isnan() & b.isnan())).all())
+        assert bool(got[1][[2, 4]].isnan().all())
+        assert bool(got[1][[0, 1, 3, 5, 6, 7]].isfinite().all())
+
+
+@pytest.mark.cuda
+def test_ecd_psgd_steps_do_not_sync(cuda_device):
+    """ECD-PSGD steps through alg.step never synchronise with the host:
+    torch.cuda.set_sync_debug_mode("error") raises at any call that does."""
+    from repro_torch import random as R
+    from repro_torch.core import problems
+    from repro_torch.core.algorithms import base as alg_base
+    from repro_torch.data import synth
+    from repro_torch.experiments import engine
+    data = synth.get_generator("higgs_like")(
+        R.PRNGKey(0, device=cuda_device), n=400, d=28)
+    alg = alg_base.get_algorithm("ecd_psgd")()
+    prob = problems.resolve_problem("logistic")
+    draws = alg.make_draws(R.PRNGKey(1, device=cuda_device), 400, 30, 16, 28)
+    ctx, state, per_elem = engine.prepare_bucket(alg, prob, data, (8, 16),
+                                                 16, [draws])
+    batches = [alg_base.map_draws(lambda a: a[t], per_elem)
+               for t in range(30)]
+    state = alg.step(prob, data, ctx, state, batches[0], 0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(1, 30):
+            state = alg.step(prob, data, ctx, state, batches[t], t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ecd_compress_rows"] == 29
+    assert all(bool(torch.isfinite(s).all()) for s in state)
 
 
 def _bf16_ulp(x):
@@ -156,6 +243,16 @@ def test_kernels_reject_bad_inputs(cuda_device):
         kc.l0_shift_sum(x, 2)
     with pytest.raises(ValueError):
         kq.quantize_rows(x, x, torch.ones(5, device=cuda_device))
+    with pytest.raises(ValueError):
+        kq.ecd_compress_rows(x, x, x, x, x[:3], 0.1, 0)
+    with pytest.raises(ValueError):
+        kq.ecd_compress_rows(x, x, x, x, x.cpu(), 0.1, 0)
+    with pytest.raises(TypeError):
+        kq.ecd_compress_rows(x, x, x, x, x.double(), 0.1, 0)
+    with pytest.raises(TypeError):
+        kq.ecd_compress_rows(x, x, x, x, torch.rand(5, 4,
+                                                    device=cuda_device).t(),
+                             0.1, 0)
     with pytest.raises(TypeError):
         krms.rmsnorm_2d(x.half(), torch.ones(5, device=cuda_device).half())
     with pytest.raises(ValueError):
@@ -195,8 +292,10 @@ def test_upper_bound_gpu_matches_cpu(cuda_device):
     kernels.reset_launch_counts()
     gpu = runner.run_sweep(spec, device=cuda_device, use_cache=False)
     counts = kernels.launch_counts()
-    assert all(counts[k] > 0 for k in ("l0_rows", "l0_shift_sum",
-                                       "quantize_rows", "dequantize_rows"))
+    assert all(counts[k] > 0 for k in ("l0_rows", "l0_shift_sum"))
+    # one fused launch per ECD-PSGD step (three buckets), none of K3/K4
+    assert counts["ecd_compress_rows"] == 3 * 40
+    assert counts["quantize_rows"] == counts["dequantize_rows"] == 0
     cpu = runner.run_sweep(spec, device="cpu", use_cache=False)
     for name, info in cpu["datasets"].items():
         for k, v in info["characters"].items():

@@ -123,12 +123,14 @@ def test_cpu_route_counts_no_launch():
     kc.l0_shift_sum(x[None], 2)
     q = kq.quantize_rows(x, x, torch.ones(4))
     kq.dequantize_rows(q, torch.ones(4))
+    kq.ecd_compress_rows(x, x, x, x, x, 0.1, 0)
     krms.rmsnorm_2d(x, torch.ones(5))
     kfa.flash_attention_bhsd(x.reshape(1, 1, 4, 5), x.reshape(1, 1, 4, 5),
                              x.reshape(1, 1, 4, 5))
     assert kernels.launch_counts() == {
         "l0_rows": 0, "l0_shift_sum": 0, "quantize_rows": 0,
-        "dequantize_rows": 0, "rmsnorm": 0, "flash_attention": 0}
+        "dequantize_rows": 0, "ecd_compress_rows": 0, "rmsnorm": 0,
+        "flash_attention": 0}
 
 
 def test_other_devices_raise():
