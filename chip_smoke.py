@@ -5,12 +5,14 @@
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    CUDA extension from ``src/repro_torch/kernels/csrc``, printing the
-   build time; beside the build, ``nvcc -Xptxas -v`` compiles the
-   quantize, K5 and K6 sources alone and each kernel's registers and
-   spills are printed.
+   build time; beside the build, ``nvcc -Xptxas -v`` compiles the L0
+   (K1, K2), quantize, K5 and K6 sources alone and each kernel's
+   registers, shared memory and spills are printed.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its main path gives it and at ragged ones: K1-K3 must agree
-   exactly, K4 within one float32 ulp, the fused ECD-PSGD compression tail
+   exactly (K1 also from one input; K2 also with r >= b, b = 1, unaligned
+   rows, d = 20000, 5000 batches, NaN and inf, and over 100 back-to-back
+   launches), K4 within one float32 ulp, the fused ECD-PSGD compression tail
    (``ecd_compress_rows``, K3 and K4 with the step's updates) exactly in
    x_new and y_new for 4, 8 and 16 bits at t = 0, 1 and 2999, NaN where
    the plain version has NaN, K5 (RMSNorm) within 1e-6 in
@@ -20,13 +22,18 @@
    its tiles).  Each kernel's time, its plain version's time, its bound
    and (K5, K6) the time of the one PyTorch call that computes the same
    function are measured at the main path's shape (CUDA-graph replays
-   timed with CUDA events); K5 also at a decode step's 4 rows.
+   timed with CUDA events); K5 also at a decode step's 4 rows; K2 at the
+   main path's six shapes and at (1, 4000, 400), beside an empty kernel's
+   time (the launch floor); K1 as
+   the path calls it, from one input, beside ``torch.count_nonzero``.  One
+   K2 call runs under ``torch.profiler`` and must be one device kernel
+   with no fill or copy.
 3. Runs the ``upper_bound`` spec (paper Table II) on the GPU at its
    published iteration count, with every launch counter set to 0 just
-   before and read just after: K1 and K2 must have launched, the fused
-   kernel once per ECD-PSGD step (9000 times), and K3 and K4, which it
-   replaces there, never.  Then 300 ECD-PSGD steps of the sweep's 32-row
-   bucket go straight through ``alg.step`` under
+   before and read just after: K1 must have launched 10 times, K2 6 times,
+   the fused kernel once per ECD-PSGD step (9000 times), and K3 and K4,
+   which it replaces there, never.  Then 300 ECD-PSGD steps of the
+   sweep's 32-row bucket go straight through ``alg.step`` under
    ``torch.cuda.set_sync_debug_mode("error")`` (any synchronising call
    raises), 300 more are timed, and 100 more run under ``torch.profiler``:
    device kernels per step and the device's busy share are printed.
@@ -127,7 +134,7 @@ def _timed(kernel, plain, inputs, nbytes, library=None, reps=64):
                        for _ in range(_copies(nbytes) - 1)]
     fns = (kernel, plain) + ((library,) if library else ())
     return tuple(_graph_ms([lambda a=a, f=f: f(*a) for a in sets], reps)
-                 for f in fns)
+                 for f in fns if f)
 
 
 def _bound_ms(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -136,12 +143,78 @@ def _bound_ms(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# K2's shapes on the main path: csim / ls_async at (1, 512, d) with r = 8
+# and ls_sync at (64, 8, d) with r = 7, for ub, dense and sparse8
+L0_PATH_SHAPES = [(1, 512, 400), (1, 512, 28), (1, 512, 300),
+                  (64, 8, 400), (64, 8, 28), (64, 8, 300)]
+# K2's whole call is timed there and at ub's whole dataset; row_l0 (K1
+# from one input, as the path calls it) at 512 x d and 4000 x 400
+L0_SHIFT_TIMED = [(s, 8 if s[1] > 8 else 7)
+                  for s in L0_PATH_SHAPES + [(1, 4000, 400)]]
+ROW_L0_TIMED = [(512, 400), (512, 28), (512, 300), (4000, 400)]
+
+
+def l0_input(gen, shape):
+    """Uniform values at density 0.4 from ``gen``: the input K1 and K2 are
+    timed on."""
+    import torch
+    x = torch.rand(*shape, generator=gen, device=gen.device)
+    return torch.where(torch.rand(*shape, generator=gen, device=gen.device)
+                       < 0.4, x, torch.zeros_like(x))
+
+
+def time_l0(dev, kc, metrics):
+    """Device times of K2 (``kc.l0_shift_sum``, whole call) at
+    ``L0_SHIFT_TIMED`` and of ``metrics.row_l0`` at ``ROW_L0_TIMED``, each
+    beside its bound, its plain version and, for row_l0,
+    ``torch.count_nonzero`` (the same function at tol = 0)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shift = []
+    for (nb, b, d), r in L0_SHIFT_TIMED:
+        nbytes = nb * b * d * 4 + nb * 8
+        bound, by = _bound_ms(nbytes, 3 * nb * b * d * r)
+        ms, plain_ms = _timed(lambda t, r=r: kc.l0_shift_sum(t, r),
+                              lambda t, r=r: kc.l0_shift_sum_plain(t, r),
+                              (l0_input(gen, (nb, b, d)),), nbytes)
+        shift.append({"shape": [nb, b, d, r], "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": by, "library_ms": None})
+    rows = []
+    for n, d in ROW_L0_TIMED:
+        nbytes = n * d * 4 + n * 4
+        bound, by = _bound_ms(nbytes, 2 * n * d)
+        ms, plain_ms, library_ms = _timed(
+            metrics.row_l0, kc.l0_rows_plain, (l0_input(gen, (n, d)),),
+            nbytes, library=lambda t: torch.count_nonzero(t, dim=1))
+        rows.append({"shape": [n, d], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": library_ms})
+    return {"l0_shift_sum": shift, "row_l0": rows}
+
+
+def _kernels_per_call(fn):
+    """Device kernels and copies or fills of one ``fn()`` after a warm-up,
+    under ``torch.profiler``: [kernel names], copies."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [n for n in names if n.startswith(("Memcpy", "Memset"))]
+    return {"kernels": len(names) - len(copies), "copies": len(copies),
+            "names": [n[:80] for n in names]}
+
+
 def check_kernels(dev):
     """Phase 2: every kernel against its plain version; returns the
     per-kernel records (without launch counts)."""
     import torch
     from repro_torch import random as R
-    from repro_torch.core import compression
+    from repro_torch.core import compression, metrics
     from repro_torch.kernels import csim as kc
     from repro_torch.kernels import quantize as kq
 
@@ -161,7 +234,7 @@ def check_kernels(dev):
                                 (512, 300), (257, 1025), (33, 7), (1, 1)]):
         x = data((n, d), i)
         y = x + (data((n, d), 100 + i, density=0.3) * 0.5)
-        for other in (torch.zeros_like(x), y.contiguous()):
+        for other in (None, torch.zeros_like(x), y.contiguous()):
             for tol in (0.0, 0.25):
                 got = kc.l0_rows(x, other, tol)
                 want = kc.l0_rows_plain(x, other, tol)
@@ -170,12 +243,14 @@ def check_kernels(dev):
                     raise AssertionError(f"K1 l0_rows differs at n={n} "
                                          f"d={d} tol={tol}")
                 err = max(err, float((got - want).abs().max()))
+    # the main path calls it from one input (metrics.row_l0); timed there
+    # as the path calls it, the two-input form at ub's whole dataset
     x = data((4000, 400), 0)
-    z = torch.zeros_like(x)
     n, d = x.shape
     nbytes = 2 * n * d * 4 + n * 4
     bound, by = _bound_ms(nbytes, 3 * n * d)
-    ms, plain_ms = _timed(kc.l0_rows, kc.l0_rows_plain, (x, z), nbytes)
+    ms, plain_ms = _timed(kc.l0_rows, kc.l0_rows_plain,
+                          (x, torch.zeros_like(x)), nbytes)
     records["l0_rows"] = {
         "name": "l0_rows", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/l0.cu",
@@ -183,34 +258,58 @@ def check_kernels(dev):
         "max_abs_err": err, "shape": [n, d], "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": None}
 
-    # K2: csim (nb=1, b=rows, r=8) and the LS_sync pair scan (r=b-1)
+    # K2: csim (nb=1, b=rows, r=8) and the LS_sync pair scan (r=b-1) at the
+    # main path's shapes, r >= b, b = 1, d = 1 and 7, unaligned rows (a
+    # view one float off 16 bytes, odd d), the feature-tiled path
+    # (d = 20000), many batches, NaN and +-inf
     err = 0.0
-    cases = [((1, 512, 400), 8), ((64, 8, 400), 7), ((64, 8, 28), 7),
-             ((64, 8, 300), 7)]
+    cases = [(s, 8) for s in L0_PATH_SHAPES[:3]]
+    cases += [(s, 7) for s in L0_PATH_SHAPES[3:6]]
+    cases += [((1, 4000, 400), 8), ((3, 5, 7), 13), ((4, 1, 9), 3),
+              ((2, 9, 1), 4), ((3, 11, 7), 5), ((2, 33, 130), 6),
+              ((1, 40, 20000), 8), ((5000, 8, 28), 7)]
     cases += [((3, 37, 129), r) for r in range(1, 17)]
     for i, (shape, r) in enumerate(cases):
         X = data(shape, 200 + i, density=0.4)
-        for tol in (0.0, 0.5):
-            got = kc.l0_shift_sum(X, r, tol)
-            want = kc.l0_shift_sum_plain(X, r, tol)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"K2 l0_shift_sum differs at "
-                                     f"{shape} r={r} tol={tol}")
-            err = max(err, float((got - want).abs().max()))
-    X = data((1, 512, 400), 200)
-    nb, b, d = X.shape
-    nbytes = nb * b * d * 4 + nb * 8
-    bound, by = _bound_ms(nbytes, 3 * nb * b * d * 8)
-    ms, plain_ms = _timed(lambda t: kc.l0_shift_sum(t, 8),
-                          lambda t: kc.l0_shift_sum_plain(t, 8), (X,), nbytes)
+        flat = data((X.numel() + 1,), 900 + i, density=0.4)
+        odd = flat[1:].view(shape)
+        bad = X.clone()
+        bad.view(-1)[::7] = math.nan
+        bad.view(-1)[3::11] = math.inf
+        bad.view(-1)[5::13] = -math.inf
+        for Y in (X, odd, bad):
+            for tol in (0.0, 0.5):
+                got = kc.l0_shift_sum(Y, r, tol)
+                want = kc.l0_shift_sum_plain(Y, r, tol)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"K2 l0_shift_sum differs at {tuple(Y.shape)} r={r} "
+                        f"tol={tol} data_ptr%16={Y.data_ptr() % 16}")
+                err = max(err, float((got - want).abs().max()))
+    # back to back on one stream: the counters return to zero each launch
+    inputs = [(data(s, 990 + i), r) for i, (s, r) in enumerate(cases[:8])]
+    outs = [kc.l0_shift_sum(*inputs[i % 8]) for i in range(100)]
+    for i, got in enumerate(outs):
+        if not torch.equal(got, kc.l0_shift_sum_plain(*inputs[i % 8])):
+            raise AssertionError(f"K2 differs at back-to-back launch {i}")
+    per_call = _kernels_per_call(lambda: kc.l0_shift_sum(*inputs[0]))
+    if (per_call["kernels"], per_call["copies"]) != (1, 0):
+        raise AssertionError(f"one K2 call is not one device kernel: "
+                             f"{per_call}")
+    timed = time_l0(dev, kc, metrics)
+    records["l0_rows"]["one_input"] = timed["row_l0"]
+    head = timed["l0_shift_sum"][0]
     records["l0_shift_sum"] = {
         "name": "l0_shift_sum", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/l0.cu",
         "replaces": "src/repro/kernels/csim.py:64",
-        "max_abs_err": err, "shape": [nb, b, d, 8], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": None}
+        "max_abs_err": err, **{k: head[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "by_shape": timed["l0_shift_sum"],
+        "empty_ms": _graph_ms([lambda: kc.empty_launch(dev)]),
+        "kernels_per_call": per_call}
 
     # K3/K4: ECD-PSGD quantizes (members * m_pad, d) rows per step; the
     # upper_bound buckets give 8, 32 and 24 rows of d = 28
@@ -831,7 +930,8 @@ def main() -> int:
     ptxas = {name: subprocess.Popen(build.ptxas_command(name),
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
-             for name in ("quantize.cu", "flash_attention.cu", "rmsnorm.cu")}
+             for name in ("l0.cu", "quantize.cu", "flash_attention.cu",
+                          "rmsnorm.cu")}
     build.extension()
     print(f"phase build: ok in {time.perf_counter() - t0:.2f}s", flush=True)
     for name, proc in ptxas.items():
@@ -848,6 +948,21 @@ def main() -> int:
               f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}) "
               f"library_ms={rec['library_ms']} "
               f"max_abs_err={rec['max_abs_err']}", flush=True)
+    k2 = records["l0_shift_sum"]
+    empty = k2.pop("empty_ms")
+    print(f"  empty kernel (launch floor) ms={empty:.6f}", flush=True)
+    for rec in k2.pop("by_shape"):
+        print(f"  l0_shift_sum shape={rec['shape']} ms={rec['ms']:.6f} "
+              f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}) "
+              f"over_floor_ms={rec['ms'] - empty:.6f} "
+              f"plain_ms={rec['plain_ms']:.6f}", flush=True)
+    for rec in records["l0_rows"].pop("one_input"):
+        print(f"  l0_rows one input (metrics.row_l0) shape={rec['shape']} "
+              f"ms={rec['ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
+              f"({rec['bound_by']}) library_ms={rec['library_ms']:.6f} "
+              f"plain_ms={rec['plain_ms']:.6f}", flush=True)
+    print(f"  l0_shift_sum one call under torch.profiler "
+          f"{json.dumps(k2.pop('kernels_per_call'))}", flush=True)
     print(f"  rmsnorm at a decode step "
           f"{json.dumps(records['rmsnorm']['decode'])}", flush=True)
     by_window = records["flash_attention"].pop("by_window")
@@ -886,6 +1001,10 @@ def main() -> int:
     missing = [k for k in SWEEP_KERNELS if launches[k] == 0]
     if missing:
         return _fail(f"kernels never launched on the main path: {missing}")
+    # K1: two row supports per dataset and one per predicted job; K2: C_sim
+    # and LS_sync per dataset
+    if launches["l0_rows"] != 10 or launches["l0_shift_sum"] != 6:
+        return _fail(f"K1/K2 launch counts changed: {launches}")
     # one fused launch per ECD-PSGD step: three buckets of the grid
     if launches["ecd_compress_rows"] != 3 * spec.iters or \
             any(launches[k] for k in FUSED_AWAY):

@@ -14,7 +14,7 @@
 Every L0 count goes through `repro_torch.kernels.csim`: the shift sums of
 C_sim and of the batch-internal similarity through K2 (``l0_shift_sum``),
 the per-row support sizes behind sparsity and Thm 2's Omega through K1
-(``l0_rows`` against the zero vector).  The wrappers launch the CUDA
+(``l0_rows`` against zero, from X alone).  The wrappers launch the CUDA
 kernels on CUDA tensors and run their plain versions on CPU tensors,
 the counterpart of the reference's ``_default_use_kernel``.  The counts
 are exact integers; the ratios are formed in float32 as the reference
@@ -54,9 +54,9 @@ def mean_feature_variance(X):
 
 
 def row_l0(X, tol=0.0):
-    """Per-row support size ``||x_i||_0 = ||x_i - 0||_0`` through K1."""
-    X = X.float().contiguous()
-    return kcsim.l0_rows(X, torch.zeros_like(X), tol)
+    """Per-row support size ``||x_i||_0 = ||x_i - 0||_0`` through K1,
+    read from X alone (no zero tensor)."""
+    return kcsim.l0_rows(X.float().contiguous(), None, tol)
 
 
 def sparsity(X, tol=0.0):

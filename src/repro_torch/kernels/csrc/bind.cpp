@@ -14,8 +14,15 @@
 extern "C" {
 int repro_l0_rows(const float* x, const float* y, float* out, int64_t n,
                   int64_t d, float tol, void* stream);
-int repro_l0_shift_sum(const float* x, int64_t* out, int64_t nb, int64_t b,
-                       int64_t d, int64_t r, float tol, void* stream);
+int repro_l0_shift_sum(const float* x, int64_t* out,
+                       unsigned long long* scratch, int64_t cap, int64_t b,
+                       int64_t d, int64_t rows, int64_t width, int64_t chunk,
+                       int64_t tiles, int64_t chunks, int64_t slices,
+                       int64_t s_lo, int64_t n_off, int64_t q, int64_t rem,
+                       int64_t stage_rows, int64_t blocks, int pack_bits,
+                       float tol, void* stream);
+int repro_capture_id(void* stream, unsigned long long* id);
+int repro_empty(void* stream);
 int repro_quantize_rows(const float* x, const float* u, const float* scale,
                         void* q, int64_t rows, int64_t d, float qmax,
                         int qbytes, void* stream);
@@ -56,17 +63,45 @@ PyObject* l0_rows(PyObject*, PyObject* args) {
   return PyLong_FromLong(err);
 }
 
+// l0_shift_sum(x, out, scratch, cap, b, d, rows, width, chunk, tiles,
+// chunks, slices, s_lo, n_off, q, rem, stage_rows, blocks, pack_bits, tol,
+// stream): the plan's fields as kernels/csim.py ShiftPlan holds them
 PyObject* l0_shift_sum(PyObject*, PyObject* args) {
-  unsigned long long x, out, stream;
-  long long nb, b, d, r;
+  unsigned long long x, out, scratch, stream;
+  long long cap, b, d, rows, width, chunk, tiles, chunks, slices, s_lo, n_off,
+      q, rem, stage_rows, blocks;
+  int pack_bits;
   float tol;
-  if (!PyArg_ParseTuple(args, "KKLLLLfK", &x, &out, &nb, &b, &d, &r, &tol,
-                        &stream)) {
+  if (!PyArg_ParseTuple(args, "KKKLLLLLLLLLLLLLLLifK", &x, &out, &scratch,
+                        &cap, &b, &d, &rows, &width, &chunk, &tiles, &chunks,
+                        &slices, &s_lo, &n_off, &q, &rem, &stage_rows,
+                        &blocks, &pack_bits, &tol, &stream)) {
     return nullptr;
   }
-  int err = repro_l0_shift_sum(ptr<const float>(x), ptr<int64_t>(out), nb, b,
-                               d, r, tol, ptr<void>(stream));
+  int err = repro_l0_shift_sum(
+      ptr<const float>(x), ptr<int64_t>(out), ptr<unsigned long long>(scratch),
+      cap, b, d, rows, width, chunk, tiles, chunks, slices, s_lo, n_off, q,
+      rem, stage_rows, blocks, pack_bits, tol, ptr<void>(stream));
   return PyLong_FromLong(err);
+}
+
+// capture_id(stream): the id of the graph capture under way, 0 if none
+PyObject* capture_id(PyObject*, PyObject* args) {
+  unsigned long long stream, id = 0;
+  if (!PyArg_ParseTuple(args, "K", &stream)) return nullptr;
+  int err = repro_capture_id(ptr<void>(stream), &id);
+  if (err != 0) {
+    PyErr_Format(PyExc_RuntimeError, "cudaStreamGetCaptureInfo failed "
+                 "(cudaError %d)", err);
+    return nullptr;
+  }
+  return PyLong_FromUnsignedLongLong(id);
+}
+
+PyObject* empty(PyObject*, PyObject* args) {
+  unsigned long long stream;
+  if (!PyArg_ParseTuple(args, "K", &stream)) return nullptr;
+  return PyLong_FromLong(repro_empty(ptr<void>(stream)));
 }
 
 PyObject* quantize_rows(PyObject*, PyObject* args) {
@@ -161,6 +196,9 @@ PyMethodDef kMethods[] = {
     {"l0_rows", l0_rows, METH_VARARGS, "K1: per-row L0 distance"},
     {"l0_shift_sum", l0_shift_sum, METH_VARARGS,
      "K2: per-batch L0 totals over cyclic shifts 1..r"},
+    {"capture_id", capture_id, METH_VARARGS,
+     "id of the CUDA graph capture under way on a stream, 0 if none"},
+    {"empty", empty, METH_VARARGS, "an empty kernel: the launch floor"},
     {"quantize_rows", quantize_rows, METH_VARARGS,
      "K3: row-scaled stochastic quantization"},
     {"dequantize_rows", dequantize_rows, METH_VARARGS,

@@ -62,6 +62,176 @@ def test_cuda_kernels_match_plain(cuda_device):
         "flash_attention": 0}
 
 
+# K2 at the six shapes of the main path, ub's whole dataset, r >= b,
+# b = 1, r = 1, d = 1, 7 and not a multiple of 4, the feature-tiled path
+# (d = 20000), many batches; "unaligned" views X off 16 bytes with odd d,
+# "nonfinite" plants NaN and +-inf
+SHIFT_SUM_CASES = [
+    ((1, 512, 400), 8, ""), ((64, 8, 400), 7, ""), ((1, 512, 28), 8, ""),
+    ((64, 8, 28), 7, ""), ((1, 512, 300), 8, ""), ((64, 8, 300), 7, ""),
+    ((1, 4000, 400), 8, ""), ((3, 5, 7), 13, ""), ((2, 8, 16), 8, ""),
+    ((4, 1, 9), 3, ""), ((2, 37, 129), 1, ""), ((2, 9, 1), 4, ""),
+    ((3, 11, 7), 5, ""), ((2, 33, 130), 6, ""), ((1, 40, 20000), 8, ""),
+    ((5000, 8, 28), 7, ""), ((3, 37, 129), 16, "unaligned"),
+    ((64, 8, 27), 7, "unaligned"), ((1, 512, 400), 8, "nonfinite"),
+    ((64, 8, 300), 7, "nonfinite"), ((2, 6, 5), 9, "nonfinite")]
+
+
+def _shift_input(dev, shape, kind, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = math.prod(shape)
+    flat = torch.rand(n + 1, device=dev, generator=g)
+    flat = torch.where(torch.rand(n + 1, device=dev, generator=g) < 0.5,
+                       flat, torch.zeros_like(flat))
+    X = (flat[1:] if kind == "unaligned" else flat[:n]).view(shape)
+    if kind == "nonfinite":
+        X = X.clone()
+        X.view(-1)[::7] = math.nan
+        X.view(-1)[3::11] = math.inf
+        X.view(-1)[5::13] = -math.inf
+    return X
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,r,kind", SHIFT_SUM_CASES)
+def test_l0_shift_sum_kernel_matches_plain(shape, r, kind, cuda_device):
+    """K2 equals its plain version exactly, one launch per call."""
+    X = _shift_input(cuda_device, shape, kind, sum(shape) + r)
+    assert X.is_contiguous()
+    if kind == "unaligned":
+        assert X.data_ptr() % 16 != 0
+    kernels.reset_launch_counts()
+    for tol in (0.0, 0.5):
+        got = kc.l0_shift_sum(X, r, tol)
+        want = kc.l0_shift_sum_plain(X, r, tol)
+        assert got.dtype == torch.int64 and got.shape == (shape[0],)
+        assert torch.equal(got, want), (got - want).abs().max()
+    assert kernels.launch_counts()["l0_shift_sum"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 1000), (1, 64, 20000)])
+def test_l0_shift_sum_totals_beyond_40_bits(shape, cuda_device):
+    """r = 2^31 - 1: totals past 2^40 take the unpacked counters
+    (accumulator, fence, ticket), exact over 10 launches in a row;
+    r = q b + rem gives q times all offsets plus offsets 1..rem."""
+    X = _shift_input(cuda_device, shape, "", 7)
+    r = 2 ** 31 - 1
+    plan = kc.shift_sum_plan(*shape, r)
+    assert not plan.packed and plan.blocks > shape[0]
+    q, rem = divmod(r, shape[1])
+    want = (q * kc.l0_shift_sum_plain(X, shape[1])
+            + kc.l0_shift_sum_plain(X, rem))
+    assert int(want.max()) >= 2 ** 40
+    outs = [kc.l0_shift_sum(X, r) for _ in range(10)]
+    assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.cuda
+def test_l0_shift_sum_back_to_back_launches(cuda_device):
+    """100 launches in a row on one stream, each compared: the counters
+    that meet a batch's blocks return to zero after every launch."""
+    shapes = [((1, 512, 400), 8), ((64, 8, 28), 7), ((1, 4000, 400), 8),
+              ((3, 37, 129), 16)]
+    inputs = [(_shift_input(cuda_device, s, "", i), r)
+              for i, (s, r) in enumerate(shapes)]
+    outs = [kc.l0_shift_sum(*inputs[i % len(inputs)]) for i in range(100)]
+    for i, got in enumerate(outs):
+        X, r = inputs[i % len(inputs)]
+        assert torch.equal(got, kc.l0_shift_sum_plain(X, r)), i
+
+
+@pytest.mark.cuda
+def test_l0_shift_sum_on_two_streams_and_in_a_graph(cuda_device):
+    """Launches on two streams at once and replays of a captured graph
+    give the plain totals: each stream and each capture has counters of
+    its own."""
+    X1 = _shift_input(cuda_device, (1, 512, 400), "", 1)
+    X2 = _shift_input(cuda_device, (64, 8, 300), "", 2)
+    want1, want2 = kc.l0_shift_sum_plain(X1, 8), kc.l0_shift_sum_plain(X2, 7)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for k, (s, X, r) in enumerate(zip(streams, (X1, X2), (8, 7))):
+            with torch.cuda.stream(s):
+                outs[k].append(kc.l0_shift_sum(X, r))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want1) for o in outs[0])
+    assert all(torch.equal(o, want2) for o in outs[1])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g1 = kc.l0_shift_sum(X1, 8)
+        g2 = kc.l0_shift_sum(X2, 7)
+    for _ in range(3):
+        graph.replay()
+        eager = kc.l0_shift_sum(X1, 8)
+        torch.cuda.synchronize()
+        assert torch.equal(g1, want1) and torch.equal(g2, want2)
+        assert torch.equal(eager, want1)
+
+
+@pytest.mark.cuda
+def test_l0_shift_sum_captures_keep_one_counter_buffer(cuda_device):
+    """Graphs captured one after another each replay the plain totals,
+    while the wrapper holds counters for the latest capture only: what
+    it keeps does not grow with the number of captures."""
+    X = _shift_input(cuda_device, (1, 512, 400), "", 3)
+    want = kc.l0_shift_sum_plain(X, 8)
+    kc.l0_shift_sum(X, 8)
+    torch.cuda.synchronize()
+    eager = dict(kc._counters)
+    graphs, outs = [], []
+    for _ in range(8):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(kc.l0_shift_sum(X, 8))
+        graphs.append(graph)
+        assert len(kc._capture_counters) == 1
+    assert kc._counters.keys() == eager.keys()
+    for _ in range(2):
+        for graph, out in zip(graphs, outs):
+            out.zero_()
+            graph.replay()
+            assert torch.equal(kc.l0_shift_sum(X, 8), want)
+            assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_l0_shift_sum_is_one_device_kernel(cuda_device):
+    """Under the profiler one call is one device kernel: no fill, no
+    copy."""
+    from torch.profiler import ProfilerActivity, profile
+    X = _shift_input(cuda_device, (1, 512, 400), "", 0)
+    kc.l0_shift_sum(X, 8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kc.l0_shift_sum(X, 8)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "l0_shift_sum" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(512, 400), (4000, 400), (512, 28),
+                                 (33, 7), (1, 1)])
+def test_l0_rows_against_zero_matches_plain(n, d, cuda_device):
+    """K1 from one input (row supports) equals its plain version, NaN and
+    inf included; metrics.row_l0 launches it once and no zero tensor."""
+    from repro_torch.core import metrics
+    x = _shift_input(cuda_device, (n, d), "", n + d)
+    x.view(-1)[::5] = math.nan
+    x.view(-1)[1::9] = -math.inf
+    kernels.reset_launch_counts()
+    for tol in (0.0, 0.25):
+        assert torch.equal(kc.l0_rows(x, None, tol),
+                           kc.l0_rows_plain(x, None, tol))
+    assert torch.equal(metrics.row_l0(x), kc.l0_rows_plain(x))
+    assert kernels.launch_counts()["l0_rows"] == 3
+
+
 def _tail_inputs(dev, r, d, seed, offset=0):
     """grads, x_half, xs, ys, u (r, d) on the card; row 0 of the first
     three zero when r > 1; ``offset`` floats leave rows unaligned."""
