@@ -23,11 +23,12 @@
    and (K5, K6) the time of the one PyTorch call that computes the same
    function are measured at the main path's shape (CUDA-graph replays
    timed with CUDA events); K5 also at a decode step's 4 rows; K2 at the
-   main path's six shapes and at (1, 4000, 400), beside an empty kernel's
-   time (the launch floor); K1 as
-   the path calls it, from one input, beside ``torch.count_nonzero``.  One
-   K2 call runs under ``torch.profiler`` and must be one device kernel
-   with no fill or copy.
+   main path's six shapes, at (1, 4000, 400) and at the six shapes the
+   other specs give it, beside an empty kernel's time (the launch floor);
+   K1 as the path calls it, from one input, beside ``torch.count_nonzero``,
+   also at 1536 x 48 and 800 x 400; the fused tail also at 16 rows of
+   d = 400.  One K2 call runs under ``torch.profiler`` and must be one
+   device kernel with no fill or copy.
 3. Runs the ``upper_bound`` spec (paper Table II) on the GPU at its
    published iteration count, with every launch counter set to 0 just
    before and read just after: K1 must have launched 10 times, K2 6 times,
@@ -42,6 +43,17 @@
    1e-6 relative, curves to 1e-5, every value finite; ECD-PSGD, whose
    quantizer turns an ulp into a quantum, within the reference's own
    2e-2 envelope for execution-order differences.
+4b. Phase specs: the eight other specs of the registry (``NEW_SPECS``) at
+   their published sizes on the GPU, no cache, each with the counters set
+   to 0 just before and read just after: every job must finish ``ok`` and
+   the launches of K1, K2, the fused tail and K3/K4 must equal the counts
+   predicted from the spec (`expected_launches`).  One line per spec:
+   wall time, per-job timings, status, measured and predicted m_max.
+4c. Phase specs-vs-cpu: the same eight specs at their quick sizes and 60
+   iterations on the GPU and on the CPU: characters and C_sim to 1e-6
+   relative (n, d, diversity and diversity_ratio exact), every seed's
+   curves to 1e-5 (faulted jobs included; ECD-PSGD to 2e-2), statuses,
+   measured and predicted m_max equal.
 5. Serves full-width gemma3-1b in bfloat16 with random weights from a
    seed: a prefill of 4 prompts of 2048 tokens through
    ``make_prefill_step``, then ``greedy_generate`` of 24 tokens for 4
@@ -56,7 +68,8 @@
    2e-2 relative L2, and, in float32 on a 6-layer cut, the prefill's
    logits at each of 1100 positions against token-by-token decoding
    within 5e-4.
-7. Prints one JSON line with each kernel's numbers, then the final line
+7. Prints one JSON line with each kernel's numbers (the sweep kernels'
+   launches also per spec), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU, outside a checkout of
@@ -152,6 +165,18 @@ L0_PATH_SHAPES = [(1, 512, 400), (1, 512, 28), (1, 512, 300),
 L0_SHIFT_TIMED = [(s, 8 if s[1] > 8 else 7)
                   for s in L0_PATH_SHAPES + [(1, 4000, 400)]]
 ROW_L0_TIMED = [(512, 400), (512, 28), (512, 300), (4000, 400)]
+# K1 and K2 at the other specs' shapes: the character_knob
+# specs' 1536 x 48 (C_sim, LS_sync, row supports), ls's measure_csim on
+# 400 rows of d = 28 and 200, scalability_study's 800 rows of d = 400
+SPEC_SHIFT_TIMED = [((1, 1536, 48), 8), ((192, 8, 48), 7),
+                    ((1, 400, 28), 8), ((1, 400, 200), 8),
+                    ((1, 800, 400), 8), ((100, 8, 400), 7)]
+SPEC_ROW_L0_TIMED = [(1536, 48), (800, 400)]
+# the registry's specs beyond upper_bound, run by phases specs and
+# specs-vs-cpu
+NEW_SPECS = ("variance_sparsity", "scalability_study", "diversity", "ls",
+             "problem_generality", "character_surface", "critical_params",
+             "fault_tolerance")
 
 
 def l0_input(gen, shape):
@@ -171,7 +196,7 @@ def time_l0(dev, kc, metrics):
     import torch
     gen = torch.Generator(device=dev).manual_seed(5)
     shift = []
-    for (nb, b, d), r in L0_SHIFT_TIMED:
+    for (nb, b, d), r in L0_SHIFT_TIMED + SPEC_SHIFT_TIMED:
         nbytes = nb * b * d * 4 + nb * 8
         bound, by = _bound_ms(nbytes, 3 * nb * b * d * r)
         ms, plain_ms = _timed(lambda t, r=r: kc.l0_shift_sum(t, r),
@@ -180,7 +205,7 @@ def time_l0(dev, kc, metrics):
         shift.append({"shape": [nb, b, d, r], "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound, "bound_by": by, "library_ms": None})
     rows = []
-    for n, d in ROW_L0_TIMED:
+    for n, d in ROW_L0_TIMED + SPEC_ROW_L0_TIMED:
         nbytes = n * d * 4 + n * 4
         bound, by = _bound_ms(nbytes, 2 * n * d)
         ms, plain_ms, library_ms = _timed(
@@ -231,7 +256,8 @@ def check_kernels(dev):
     # supports; ragged shapes and perturbed copies exercise tol
     err = 0.0
     for i, (n, d) in enumerate([(4000, 400), (512, 400), (512, 28),
-                                (512, 300), (257, 1025), (33, 7), (1, 1)]):
+                                (512, 300), (257, 1025), (33, 7), (1, 1)]
+                               + SPEC_ROW_L0_TIMED):
         x = data((n, d), i)
         y = x + (data((n, d), 100 + i, density=0.3) * 0.5)
         for other in (None, torch.zeros_like(x), y.contiguous()):
@@ -269,6 +295,7 @@ def check_kernels(dev):
               ((2, 9, 1), 4), ((3, 11, 7), 5), ((2, 33, 130), 6),
               ((1, 40, 20000), 8), ((5000, 8, 28), 7)]
     cases += [((3, 37, 129), r) for r in range(1, 17)]
+    cases += SPEC_SHIFT_TIMED
     for i, (shape, r) in enumerate(cases):
         X = data(shape, 200 + i, density=0.4)
         flat = data((X.numel() + 1,), 900 + i, density=0.4)
@@ -405,6 +432,10 @@ def check_ecd_compress(dev):
     cases = [((8, 28), 0), ((32, 28), 0), ((24, 28), 0), ((5, 1000), 0),
              ((1, 112000), 0), ((3, 1), 0), ((7, 30), 0), ((3, 999), 0),
              ((4, 1024), 0), ((2, 1025), 0), ((32, 28), 1), ((5, 1000), 1)]
+    # the rows of variance_sparsity's and scalability_study's d = 400
+    # buckets and of ls's d = 28 ones
+    cases += [((1, 400), 0), ((4, 400), 0), ((8, 400), 0), ((16, 400), 0),
+              ((1, 28), 0), ((16, 28), 0)]
     err = 0.0
     for i, ((r, d), offset) in enumerate(cases):
         ins = _tail_inputs(dev, r, d, 500 + i, offset)
@@ -436,21 +467,22 @@ def check_ecd_compress(dev):
         if not bool(torch.isnan(got[1][[2, 4]]).all()):
             raise AssertionError("ecd_compress_rows: a NaN or inf row did "
                                  "not give a NaN y_new row")
-    r, d = 32, 28
-    ins = _tail_inputs(dev, r, d, 700)
-    nbytes = 7 * r * d * 4
-    bound, by = _bound_ms(nbytes, 21 * r * d)
-    ms, plain_ms = _timed(lambda *a: kq.ecd_compress_rows(*a, 0.1, 1500, 8),
-                          lambda *a: kq.ecd_compress_rows_plain(*a, 0.1, 1500,
-                                                                8),
-                          tuple(ins), nbytes)
+    timed = []
+    for r, d in ((32, 28), (16, 400)):
+        ins = _tail_inputs(dev, r, d, 700)
+        nbytes = 7 * r * d * 4
+        bound, by = _bound_ms(nbytes, 21 * r * d)
+        ms, plain_ms = _timed(
+            lambda *a: kq.ecd_compress_rows(*a, 0.1, 1500, 8),
+            lambda *a: kq.ecd_compress_rows_plain(*a, 0.1, 1500, 8),
+            tuple(ins), nbytes)
+        timed.append({"shape": [r, d, 8], "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": by, "library_ms": None})
     return {"name": "ecd_compress_rows", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quantize.cu",
             "replaces": "src/repro/kernels/quantize.py:25",
             "also_replaces": "src/repro/kernels/quantize.py:34",
-            "max_abs_err": err, "shape": [r, d, 8], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
+            "max_abs_err": err, **timed[0], "d400": timed[1]}
 
 
 def _bf16_ulp(x):
@@ -876,6 +908,128 @@ def check_against_cpu(iters: int = 60):
     return report
 
 
+def expected_launches(spec):
+    """Launches of K1, K2 and the fused ECD-PSGD tail that a run of
+    ``spec`` must make, counted from the spec (every job healthy): K1
+    three times a dataset (sparsity, density, Omega) and once a predicted
+    job of the Hogwild! or SVRG kind (Omega); K2 twice a dataset (C_sim,
+    LS_sync) and once more with ``measure_csim``; the fused tail once a
+    step of each ECD-PSGD bucket; K3 and K4, which it replaces, never."""
+    from repro_torch.core.algorithms import base as alg_base
+    from repro_torch.experiments import engine
+    omega = sum(1 for job in spec.jobs if job.predict and alg_base
+                .get_algorithm(job.algorithm).predictor in ("hogwild",
+                                                            "svrg"))
+    ecd = sum(1 for job in spec.jobs if job.algorithm == "ecd_psgd")
+    return {"l0_rows": 3 * len(spec.datasets) + omega,
+            "l0_shift_sum": (2 + (spec.measure_csim > 0))
+            * len(spec.datasets),
+            "ecd_compress_rows": ecd * len(engine._buckets(spec.ms))
+            * spec.iters,
+            "quantize_rows": 0, "dequantize_rows": 0}
+
+
+def run_specs():
+    """Phase specs: each spec of ``NEW_SPECS`` on the card at its published
+    size, no cache, with the launch counters set to 0 just before and read
+    just after; every job must finish ``ok`` and every count must equal
+    :func:`expected_launches`.  Prints one line per spec and returns the
+    per-spec launch counts."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.experiments import registry, runner
+    launches_by_spec = {}
+    for name in NEW_SPECS:
+        spec = registry.get_spec(name)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = runner.run_sweep(spec, device="cuda", use_cache=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        want = expected_launches(spec)
+        jobs = {key: [jr["status"], jr.get("measured_m_max"),
+                      jr.get("predicted", {}).get("predicted_m_max")]
+                for key, jr in result["jobs"].items()}
+        got = {k: launches[k] for k in want}
+        timings = {k: round(v, 4) for k, v in result["timings"].items()}
+        print(f"  spec {name}: wall_s={wall:.3f} iters={spec.iters} "
+              f"ms={list(spec.ms)} seeds={spec.n_seeds} "
+              f"datasets={len(spec.datasets)} jobs={len(spec.jobs)} "
+              f"launches={json.dumps(got)} expected={json.dumps(want)} "
+              f"[status, measured_m_max, predicted_m_max] "
+              f"{json.dumps(jobs)} timings_s {json.dumps(timings)}",
+              flush=True)
+        bad = [key for key, (status, _, _) in jobs.items() if status != "ok"]
+        if bad:
+            raise AssertionError(f"{name}: jobs not ok: {bad}")
+        if spec.epsilon is not None and any(
+                "measured_m_max" not in jr for jr in result["jobs"].values()):
+            raise AssertionError(f"{name}: a job has no measured m_max")
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        launches_by_spec[name] = got
+    return launches_by_spec
+
+
+def check_specs_against_cpu(iters: int = 60):
+    """Phase specs-vs-cpu: each spec of ``NEW_SPECS`` at its quick size and
+    ``iters`` iterations on the GPU and on the CPU (plain versions) in
+    this process: characters and C_sim to 1e-6 relative with n, d,
+    diversity and diversity_ratio exact; every seed's curves to 1e-5
+    (ECD-PSGD to the reference's 2e-2 envelope, as phase 4); statuses,
+    measured and predicted m_max equal."""
+    from repro_torch.experiments import registry, runner
+    report = {}
+    for name in NEW_SPECS:
+        spec = registry.get_spec(name, quick=True, iters=iters)
+        gpu = runner.run_sweep(spec, device="cuda", use_cache=False)
+        cpu = runner.run_sweep(spec, device="cpu", use_cache=False)
+        char_rel = 0.0
+        for ds, info in cpu["datasets"].items():
+            mine = gpu["datasets"][ds]
+            pairs = [(k, mine["characters"][k], v)
+                     for k, v in info["characters"].items()]
+            if "csim" in info:
+                pairs.append(("csim", mine["csim"], info["csim"]))
+            for k, got, want in pairs:
+                exact = k in ("n", "d", "diversity", "diversity_ratio")
+                if (got != want) if exact else not _close(got, want, 1e-6):
+                    raise AssertionError(f"{name} {ds}.{k}: gpu {got} cpu "
+                                         f"{want}")
+                if not exact:
+                    char_rel = max(char_rel, abs(got - want)
+                                   / max(abs(got), abs(want), 1e-30))
+        diffs = {"ecd_psgd": 0.0, "faulted": 0.0, "other": 0.0}
+        jobs = {job.key: job for job in spec.jobs}
+        for key, jc in cpu["jobs"].items():
+            jg = gpu["jobs"][key]
+            kind = ("ecd_psgd" if jc["algorithm"] == "ecd_psgd" else
+                    "faulted" if "fault" in jobs[key].kwargs else "other")
+            tol = 2e-2 if kind == "ecd_psgd" else 1e-5
+            # (m, seed, eval) curves, one seed where the spec has one
+            diff = max(_max_diff(a, b) for a, b in zip(
+                *(j.get("losses_seeds", [[c] for c in j["losses"]])
+                  for j in (jg, jc))))
+            if diff > tol:
+                raise AssertionError(f"{name} {key}: GPU and CPU curves "
+                                     f"differ by {diff} > {tol}")
+            diffs[kind] = max(diffs[kind], diff)
+            for field in ("status", "measured_m_max"):
+                if jg.get(field) != jc.get(field):
+                    raise AssertionError(f"{name} {key}: {field} gpu "
+                                         f"{jg.get(field)} cpu "
+                                         f"{jc.get(field)}")
+            pred = [j.get("predicted", {}).get("predicted_m_max")
+                    for j in (jg, jc)]
+            if pred[0] != pred[1]:
+                raise AssertionError(f"{name} {key}: predicted m_max {pred}")
+        report[name] = {"jobs": len(cpu["jobs"]), "max_char_rel": char_rel,
+                        "max_curve_diff": diffs}
+    return report
+
+
 def _ptxas_summary(text: str):
     """One line per kernel of ``nvcc -Xptxas -v``'s report: its name
     (demangled where ``c++filt`` exists), registers and spills."""
@@ -961,6 +1115,8 @@ def main() -> int:
               f"ms={rec['ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
               f"({rec['bound_by']}) library_ms={rec['library_ms']:.6f} "
               f"plain_ms={rec['plain_ms']:.6f}", flush=True)
+    d400 = records["ecd_compress_rows"].pop("d400")
+    print(f"  ecd_compress_rows at d = 400 {json.dumps(d400)}", flush=True)
     print(f"  l0_shift_sum one call under torch.profiler "
           f"{json.dumps(k2.pop('kernels_per_call'))}", flush=True)
     print(f"  rmsnorm at a decode step "
@@ -1023,6 +1179,15 @@ def main() -> int:
           f"{json.dumps(agreement)}", flush=True)
 
     t0 = time.perf_counter()
+    spec_launches = run_specs()
+    print(f"phase specs: ok in {time.perf_counter() - t0:.2f}s", flush=True)
+
+    t0 = time.perf_counter()
+    spec_agreement = check_specs_against_cpu()
+    print(f"phase specs-vs-cpu: ok in {time.perf_counter() - t0:.2f}s "
+          f"{json.dumps(spec_agreement)}", flush=True)
+
+    t0 = time.perf_counter()
     report, serve_launches, params, batch, logits = run_serve(dev)
     print(f"phase serve: ok in {time.perf_counter() - t0:.2f}s gemma3-1b "
           f"bf16 prefill 4x2048, greedy 4x(16+24) "
@@ -1041,10 +1206,15 @@ def main() -> int:
 
     for name, rec in records.items():
         rec["launches"] = launches[name]
+        if name in SWEEP_KERNELS + FUSED_AWAY:
+            rec["launches_by_spec"] = {
+                "upper_bound": launches[name],
+                **{spec: counts[name]
+                   for spec, counts in spec_launches.items()}}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "also_replaces", "note", "routes", "max_abs_err_by_dtype",
-            "decode")
+            "decode", "launches_by_spec")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec}
                                   for rec in records.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,7 @@ import torch
 ALGORITHMS: Dict[str, Type["Algorithm"]] = {}
 
 #: predictor kinds an Algorithm may declare (resolved in experiments.runner)
-PREDICTOR_KINDS = ("sync", "hogwild", "dadm")
+PREDICTOR_KINDS = ("sync", "hogwild", "dadm", "momentum", "local_sgd", "svrg")
 
 
 def register_algorithm(cls: Type["Algorithm"]) -> Type["Algorithm"]:
@@ -90,6 +90,8 @@ class Algorithm:
     bucketed_default: ClassVar[bool] = True
     force_flat: ClassVar[bool] = False
     predictor: ClassVar[str] = "sync"
+    #: effective-step amplification a generic harness should divide out
+    gamma_scale: ClassVar[float] = 1.0
 
     def make_draws(self, key, n: int, iters: int, m_top: int, d: int):
         """All draws for ``iters`` steps at the grid top ``m_top``: a

@@ -83,8 +83,8 @@ class Problem:
         return c[..., None] * xi + self.lam * x
 
     def batch_grad(self, x, Xb, yb):
-        """Mean regularized gradient over a batch: x (d,), Xb (b, d)."""
-        c = self.dloss(Xb @ x, yb)
+        """Mean regularized gradient over a batch: x (..., d), Xb (b, d)."""
+        c = self.dloss(x @ Xb.T, yb)
         return (c @ Xb) / Xb.shape[0] + self.lam * x
 
     def masked_batch_grad(self, x, Xb, yb, active, mf):

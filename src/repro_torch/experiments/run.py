@@ -1,21 +1,34 @@
 """CLI for the port's sweep engine.
 
+  PYTHONPATH=src python -m repro_torch.experiments.run --list
   PYTHONPATH=src python -m repro_torch.experiments.run --spec upper_bound
-  PYTHONPATH=src python -m repro_torch.experiments.run --spec upper_bound \\
-      --quick --device cpu --no-cache
+  PYTHONPATH=src python -m repro_torch.experiments.run --spec \\
+      variance_sparsity --quick --iters 100 --n 300 --device cpu --no-cache
+  PYTHONPATH=src python -m repro_torch.experiments.run --spec diversity \\
+      --quick --problem hinge
 
 Runs on the GPU by default and fails without one unless ``--device cpu``
-is given.  Repeated runs of an unchanged spec are served from the port's
-artifact cache (``--force`` recomputes, ``--no-cache`` bypasses it).
-The report ends with the measured-vs-predicted m_max comparison.
+is given.  ``--list`` prints the registered specs, algorithms, problems
+and dataset generators.  ``--n`` overrides a spec's dataset size.
+``--problem`` re-points every job at another registered objective and
+keeps each job's kwargs, so a step size tuned for the original objective
+may not suit the new one's curvature (the runner marks a job whose curve
+is not finite ``"diverged"``).  Repeated runs of an unchanged spec are
+served from the port's artifact cache (``--force`` recomputes,
+``--no-cache`` bypasses it).  The report ends with the
+measured-vs-predicted m_max comparison.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
+from repro_torch.core import problems as problems_mod
+from repro_torch.core.algorithms import base as alg_base
+from repro_torch.data import synth
 from repro_torch.experiments import registry, runner
 
 
@@ -28,7 +41,8 @@ def _print_report(result: dict) -> None:
     print("=" * 72)
     for name, info in result["datasets"].items():
         c = info["characters"]
-        print(f"dataset {name:10s} n={info['n']} d={info['d']}  "
+        csim = f"  C_sim={info['csim']:.2f}" if "csim" in info else ""
+        print(f"dataset {name:10s} n={info['n']} d={info['d']}{csim}  "
               f"var={c['mean_feature_variance']:.3f} "
               f"sparsity={c['sparsity']:.3f} div={c['diversity_ratio']:.2f} "
               f"csim_async={c['csim_async']:.2f} "
@@ -38,14 +52,14 @@ def _print_report(result: dict) -> None:
     for key, jr in result["jobs"].items():
         curves = runner.curves_by_m(jr)
         finals = "  ".join(f"m{m}={c[-1]:.4f}" for m, c in curves.items())
-        print(f"{key:20s} final loss: {finals}")
+        print(f"{key:28s} final loss: {finals}")
         if "costs" in jr:
             costs = "  ".join(f"m{m}={c:.0f}"
                               for m, c in zip(jr["ms"], jr["costs"]))
-            print(f"{'':20s} cost/worker (eps={jr['epsilon']:.4f}): {costs}")
-            print(f"{'':20s} measured m_max = {jr['measured_m_max']}")
+            print(f"{'':28s} cost/worker (eps={jr['epsilon']:.4f}): {costs}")
+            print(f"{'':28s} measured m_max = {jr['measured_m_max']}")
         if "predicted" in jr:
-            print(f"{'':20s} predicted m_max = "
+            print(f"{'':28s} predicted m_max = "
                   f"{jr['predicted']['predicted_m_max']}")
         if "measured_m_max" in jr and "predicted" in jr:
             comparisons.append((key, jr["measured_m_max"],
@@ -53,7 +67,7 @@ def _print_report(result: dict) -> None:
     if comparisons:
         print("\nmeasured vs predicted scalability upper bound:")
         for key, meas, pred in comparisons:
-            print(f"  {key:20s} measured={meas:<6d} predicted={pred}")
+            print(f"  {key:28s} measured={meas:<6d} predicted={pred}")
     cache = result.get("cache", {})
     src = ("cache hit" if cache.get("hit")
            else f"computed in {result.get('elapsed_s', 0.0):.2f}s")
@@ -61,15 +75,45 @@ def _print_report(result: dict) -> None:
           f"artifact: {cache.get('path')}")
 
 
+def _print_registries() -> None:
+    print("registered sweep specs:")
+    for name in registry.SPEC_IDS:
+        spec = registry.get_spec(name, quick=True)
+        print(f"  {name:20s} {spec.description}")
+    print("\nregistered algorithms (core.algorithms):")
+    for name in sorted(alg_base.ALGORITHMS):
+        cls = alg_base.ALGORITHMS[name]
+        flags = ["async"] if cls.asynchronous else []
+        flags.append("flat" if cls.force_flat
+                     else ("bucketed" if cls.bucketed_default
+                           else "flat-default"))
+        print(f"  {name:20s} predictor={cls.predictor:9s} "
+              f"[{', '.join(flags)}]")
+    print("\nregistered problems (core.problems):")
+    for name in sorted(problems_mod.PROBLEMS):
+        doc = (problems_mod.PROBLEMS[name].__doc__ or "").split("\n")[0]
+        print(f"  {name:20s} {doc}")
+    print("\nregistered dataset generators (data.synth):")
+    for name in sorted(synth.GENERATORS):
+        doc = (synth.GENERATORS[name].__doc__ or "").split("\n")[0]
+        print(f"  {name:20s} {doc}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.experiments.run",
         description="run a registered scalability sweep on the PyTorch port")
-    ap.add_argument("--spec", required=True,
-                    help=f"spec name; one of {registry.SPEC_IDS}")
+    ap.add_argument("--spec", help=f"spec name; one of {registry.SPEC_IDS}")
+    ap.add_argument("--list", action="store_true",
+                    help="list registered specs, algorithms, problems and "
+                         "dataset generators, then exit")
+    ap.add_argument("--problem",
+                    help="re-point every job at this registered problem "
+                         "(e.g. ridge, hinge); job kwargs are kept")
     ap.add_argument("--quick", action="store_true",
                     help="CI-scale iteration counts")
     ap.add_argument("--iters", type=int, help="override iteration budget")
+    ap.add_argument("--n", type=int, help="override dataset size")
     ap.add_argument("--seeds", type=int,
                     help="override the spec's n_seeds (seed replicates)")
     ap.add_argument("--device", default="cuda",
@@ -83,8 +127,18 @@ def main(argv=None) -> int:
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 
+    if args.list:
+        _print_registries()
+        return 0
+    if not args.spec:
+        ap.error("--spec is required (or --list)")
     spec = registry.get_spec(args.spec, quick=args.quick, iters=args.iters,
-                             seeds=args.seeds)
+                             n=args.n, seeds=args.seeds)
+    if args.problem:
+        problems_mod.get_problem(args.problem)    # fail fast if unknown
+        spec = dataclasses.replace(spec, jobs=tuple(
+            dataclasses.replace(j, problem=args.problem)
+            for j in spec.jobs)).validate()
     result = runner.run_sweep(spec, device=args.device,
                               use_cache=not args.no_cache, force=args.force,
                               cache_dir=args.cache_dir, verbose=args.verbose)

@@ -44,6 +44,9 @@ _PREDICTORS = {
     "hogwild": fit_mod.predict_hogwild_mmax,
     "sync": fit_mod.predict_sync_mmax,
     "dadm": fit_mod.predict_dadm_mmax,
+    "momentum": fit_mod.predict_momentum_mmax,
+    "local_sgd": fit_mod.predict_local_sgd_mmax,
+    "svrg": fit_mod.predict_svrg_mmax,
 }
 
 #: row cap for the always-on dataset-characters report

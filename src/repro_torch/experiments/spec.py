@@ -39,14 +39,12 @@ class DatasetSpec:
     kwargs: Dict = dataclasses.field(default_factory=dict)
     seed: int = 0                        # PRNGKey for the generator
     shuffle_split: bool = True           # False: keep sampling-sequence order
-    variant: Optional[str] = None        # diversity variants: not ported yet
+    variant: Optional[str] = None        # diversity: "high" | "mid" | "low"
 
     def validate(self):
         synth.get_generator(self.generator)   # raises KeyError if unknown
-        if self.variant is not None:
-            raise NotImplementedError(
-                f"diversity variant {self.variant!r}: the diversity "
-                f"variants are not ported yet")
+        if self.variant not in (None, "high", "mid", "low"):
+            raise ValueError(f"bad diversity variant {self.variant!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +138,9 @@ def _source_token(obj) -> str:
 
 
 def registry_signature(spec: SweepSpec) -> Dict[str, str]:
-    """Source tokens for every registry entry the spec references."""
+    """Source tokens for every registry entry the spec references; a
+    wrapper generator's ``base`` generator (``label_noise``) is folded in
+    too."""
     sig = {}
     for job in spec.jobs:
         sig[f"algorithm:{job.algorithm}"] = _source_token(
@@ -148,8 +148,14 @@ def registry_signature(spec: SweepSpec) -> Dict[str, str]:
         sig[f"problem:{job.problem}"] = _source_token(
             problems_mod.get_problem(job.problem))
     for ds in spec.datasets.values():
-        sig[f"generator:{ds.generator}"] = _source_token(
-            synth.get_generator(ds.generator))
+        name, kwargs = ds.generator, ds.kwargs
+        while f"generator:{name}" not in sig:
+            sig[f"generator:{name}"] = _source_token(
+                synth.get_generator(name))
+            base = kwargs.get("base")
+            if not (isinstance(base, str) and base in synth.GENERATORS):
+                break
+            name, kwargs = base, {}
     return sig
 
 
@@ -175,10 +181,15 @@ def fingerprint(spec: SweepSpec) -> str:
 
 
 def build_dataset(ds: DatasetSpec, device) -> synth.Dataset:
-    """Materialize a DatasetSpec on ``device``."""
+    """Materialize a DatasetSpec on ``device`` (its diversity variant,
+    if any, applied)."""
     ds.validate()
     key = R.PRNGKey(ds.seed, device=device)
-    return synth.get_generator(ds.generator)(key, **ds.kwargs)
+    data = synth.get_generator(ds.generator)(key, **ds.kwargs)
+    if ds.variant is not None:
+        high, mid, low = synth.make_diversity_variants(data)
+        data = {"high": high, "mid": mid, "low": low}[ds.variant]
+    return data
 
 
 def split_dataset(ds_spec: DatasetSpec, data: synth.Dataset, split_seed: int):

@@ -1,7 +1,8 @@
 """Carry-across functions: the reference's state, given as numpy arrays,
 turned into the port's, so tests can feed both packages identical inputs.
 
-  :func:`dataset`  X and y (and a name) -> `data.synth.Dataset`
+  :func:`dataset`  X and y (and a name) -> `data.synth.Dataset`, e.g.
+                   a reference generator's output
   :func:`split`    the reference's train / valid (/ test) datasets, each
                    as an ``(X, y)`` pair -> a tuple of port datasets
   :func:`draws`    an algorithm's ``make_draws`` output -> the port's
@@ -47,13 +48,20 @@ def draws(algorithm: str, ref_draws, d: int, device="cpu"):
     """The reference's ``make_draws`` pytree for ``algorithm`` -> the
     port's draws.  Sample indices become int64; ECD-PSGD's ``keys``
     (iters, m_top, 2) uint32 become ``u`` (iters, m_top, d), the uniform
-    noise each key draws."""
+    noise each key draws; a faulted Hogwild! or local SGD's ``{"i",
+    "fault": {...}}`` becomes one flat dict, the four event masks beside
+    ``"i"``."""
     if algorithm == "ecd_psgd":
         keys = _tensor(np.asarray(ref_draws["keys"]).astype(np.int64),
                        torch.int64, device)
         return {"order": _tensor(ref_draws["order"], torch.int64, device),
                 "u": R.uniform(keys, (d,))}
-    if algorithm in ("minibatch", "hogwild", "dadm"):
+    if algorithm in ("hogwild", "local_sgd") and isinstance(ref_draws, dict):
+        return {"i": _tensor(ref_draws["i"], torch.int64, device),
+                **{k: _tensor(v, torch.float32, device)
+                   for k, v in ref_draws["fault"].items()}}
+    if algorithm in ("minibatch", "hogwild", "dadm", "momentum", "local_sgd",
+                     "async_svrg"):
         return _tensor(ref_draws, torch.int64, device)
     raise KeyError(f"no carry-across for algorithm {algorithm!r}")
 

@@ -74,7 +74,10 @@ SHIFT_SUM_CASES = [
     ((3, 11, 7), 5, ""), ((2, 33, 130), 6, ""), ((1, 40, 20000), 8, ""),
     ((5000, 8, 28), 7, ""), ((3, 37, 129), 16, "unaligned"),
     ((64, 8, 27), 7, "unaligned"), ((1, 512, 400), 8, "nonfinite"),
-    ((64, 8, 300), 7, "nonfinite"), ((2, 6, 5), 9, "nonfinite")]
+    ((64, 8, 300), 7, "nonfinite"), ((2, 6, 5), 9, "nonfinite"),
+    # the character_knob specs, ls's measure_csim, scalability_study
+    ((1, 1536, 48), 8, ""), ((192, 8, 48), 7, ""), ((1, 400, 28), 8, ""),
+    ((1, 400, 200), 8, ""), ((1, 800, 400), 8, ""), ((100, 8, 400), 7, "")]
 
 
 def _shift_input(dev, shape, kind, seed):
@@ -216,7 +219,7 @@ def test_l0_shift_sum_is_one_device_kernel(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d", [(512, 400), (4000, 400), (512, 28),
-                                 (33, 7), (1, 1)])
+                                 (33, 7), (1, 1), (1536, 48), (800, 400)])
 def test_l0_rows_against_zero_matches_plain(n, d, cuda_device):
     """K1 from one input (row supports) equals its plain version, NaN and
     inf included; metrics.row_l0 launches it once and no zero tensor."""
@@ -251,7 +254,10 @@ def _tail_inputs(dev, r, d, seed, offset=0):
 # the widest warp row (1024) and the two-pass kernel (d > 1024)
 ECD_TAIL_CASES = [(8, 28, 0), (32, 28, 0), (24, 28, 0), (5, 1000, 0),
                   (1, 112000, 0), (3, 1, 0), (7, 30, 0), (3, 999, 0),
-                  (4, 1024, 0), (2, 1025, 0), (32, 28, 1), (5, 1000, 1)]
+                  (4, 1024, 0), (2, 1025, 0), (32, 28, 1), (5, 1000, 1),
+                  # d = 400 of variance_sparsity and scalability_study
+                  (1, 400, 0), (4, 400, 0), (8, 400, 0), (16, 400, 0),
+                  (1, 28, 0), (16, 28, 0)]
 
 
 @pytest.mark.cuda
@@ -475,3 +481,72 @@ def test_upper_bound_gpu_matches_cpu(cuda_device):
         tol = 2e-2 if jc["algorithm"] == "ecd_psgd" else 1e-5
         for a, b in zip(gpu["jobs"][key]["losses"], jc["losses"]):
             assert a == pytest.approx(b, abs=tol), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("ls_sequence", {"n": 2400, "d": 28, "mutate_frac": 0.1}),
+    ("ls_sequence", {"n": 2400, "d": 200, "mutate_frac": 0.9,
+                     "density": 0.05, "lo": 0, "hi": 1}),
+    ("one_sample", {"n": 100, "d": 16}),
+    ("label_noise", {"base": "higgs_like", "flip_frac": 0.2, "n": 2000,
+                     "d": 28}),
+    ("character_knob", {"n": 1536, "d": 48, "variance": 0.25,
+                        "density": 0.5, "duplication": 0.75}),
+    ("heavy_tailed", {"n": 2000, "d": 28, "df": 3.0})])
+def test_generators_on_the_card_equal_the_cpu(name, kw, cuda_device):
+    """The new generators draw on the key's device, bit-identical to the
+    CPU (their samplers use only correctly rounded operations)."""
+    from repro_torch import random as R
+    from repro_torch.data import synth
+    gen = synth.get_generator(name)
+    got = gen(R.PRNGKey(3, device=cuda_device), **kw)
+    want = gen(R.PRNGKey(3), **kw)
+    assert got.X.device.type == "cuda"
+    assert torch.equal(got.X.cpu(), want.X)
+    assert torch.equal(got.y.cpu(), want.y)
+
+
+@pytest.mark.cuda
+def test_samplers_on_the_card_equal_the_cpu(cuda_device):
+    from repro_torch import random as R
+    for fn in (lambda k: R.normal(k, (3000, 28)),
+               lambda k: R.gamma(k, 1.5, (3000, 28)),
+               lambda k: R.t(k, 3.0, (3000, 28)),
+               lambda k: R.log_f32(R.uniform(k, (5000,), 1e-6, 40.0)),
+               lambda k: R.erf_inv_f32(R.uniform(k, (5000,), -1.0, 1.0))):
+        assert torch.equal(fn(R.PRNGKey(5, device=cuda_device)).cpu(),
+                           fn(R.PRNGKey(5)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg,kw", [
+    ("momentum", {"gamma": 0.02}),
+    ("momentum", {"gamma": 0.02, "nesterov": True}),
+    ("local_sgd", {"gamma": 0.1, "sync_every": 4}),
+    ("local_sgd", {"gamma": 0.1, "sync_every": 2, "fault": {
+        "straggle_rate": 0.25, "straggle_rounds": 8, "corrupt_rate": 0.125,
+        "corrupt_kind": "sign_flip", "seed": 7}}),
+    ("async_svrg", {"gamma": 0.1, "anchor_every": 25}),
+    ("hogwild", {"gamma": 0.05, "fault": {
+        "straggle_rate": 0.5, "straggle_rounds": 8, "corrupt_rate": 0.25,
+        "corrupt_kind": "sign_flip", "seed": 7}})])
+def test_new_algorithms_on_the_card_match_the_cpu(alg, kw, cuda_device):
+    """300 steps of each new algorithm (and of the faulted Hogwild! and
+    local SGD) over the grid on the card agree with the CPU within 1e-5."""
+    from repro_torch import random as R
+    from repro_torch.data import synth
+    from repro_torch.experiments import engine
+
+    def run(dev):
+        data = synth.get_generator("character_knob")(
+            R.PRNGKey(0, device=dev), n=600, d=48, variance=1.0,
+            density=0.5, duplication=0.25)
+        tr, te = data.split(key=R.PRNGKey(1, device=dev))
+        return engine.sweep(alg, tr, te, [1, 2, 4, 8, 16], iters=300,
+                            eval_every=30, n_seeds=2, **kw)
+
+    gpu, cpu = run(cuda_device), run(torch.device("cpu"))
+    for a, b in zip(gpu["losses_seeds"], cpu["losses_seeds"]):
+        for ca, cb in zip(a, b):
+            assert ca == pytest.approx(cb, abs=1e-5)
