@@ -26,7 +26,8 @@
    main path's six shapes, at (1, 4000, 400) and at the six shapes the
    other specs give it, beside an empty kernel's time (the launch floor);
    K1 as the path calls it, from one input, beside ``torch.count_nonzero``,
-   also at 1536 x 48 and 800 x 400; the fused tail also at 16 rows of
+   also at 1536 x 48 and 800 x 400, and at phase service's 4096 x 64
+   (the slot batch) and 2000 x 400; the fused tail also at 16 rows of
    d = 400.  One K2 call runs under ``torch.profiler`` and must be one
    device kernel with no fill or copy.
 3. Runs the ``upper_bound`` spec (paper Table II) on the GPU at its
@@ -54,6 +55,27 @@
    relative (n, d, diversity and diversity_ratio exact), every seed's
    curves to 1e-5 (faulted jobs included; ECD-PSGD to 2e-2), statuses,
    measured and predicted m_max equal.
+4d. Phase service: the advisor service (`repro_torch.service`) on the
+   card behind its HTTP server on an ephemeral port of this host, with a
+   fresh cache.  An analytic batch of eight probes (six higgs_like
+   2000x28, one realsim_like 2000x400 at density 0.05 past the 512x64
+   slot envelope, one raw X too small to measure), three times: statuses
+   and tiers, K1 launched twice a batch (the slot batch, the oversize
+   fallback), every integer m_max equal to the CPU service's.  Eight
+   threads then escalate two dataset probes four times each (higgs_like
+   4000x28 with ECD-PSGD, realsim_like 2000x400 with Hogwild!): exactly
+   two sweeps computed, one artifact per fingerprint served identically
+   to every waiter, K1/K2/fused-tail launches equal to the two escalation
+   specs' `expected_launches` plus one K1 launch per request's
+   measurement, measured and predicted m_max equal to the CPU port's
+   runs, curves within 1e-5 (ECD-PSGD 2e-2).  ``/metrics`` must parse
+   under the strict parser; its ``repro_service_*`` and ``repro_sweep_*``
+   samples are printed with the batch latencies and each escalation's
+   wall time.  Robustness on the card at a quick size: a job made to
+   raise ``torch.cuda.OutOfMemoryError`` once ends ``retried:1`` with an
+   artifact equal to a clean run's apart from that status, a run cut
+   after its first job resumes from the journal byte for byte, a mutated
+   artifact is quarantined.
 5. Serves full-width gemma3-1b in bfloat16 with random weights from a
    seed: a prefill of 4 prompts of 2048 tokens through
    ``make_prefill_step``, then ``greedy_generate`` of 24 tokens for 4
@@ -69,7 +91,7 @@
    logits at each of 1100 positions against token-by-token decoding
    within 5e-4.
 7. Prints one JSON line with each kernel's numbers (the sweep kernels'
-   launches also per spec), then the final line
+   launches also per spec and per service path), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU, outside a checkout of
@@ -79,6 +101,7 @@ the repository, or when any phase fails.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -172,6 +195,10 @@ SPEC_SHIFT_TIMED = [((1, 1536, 48), 8), ((192, 8, 48), 7),
                     ((1, 400, 28), 8), ((1, 400, 200), 8),
                     ((1, 800, 400), 8), ((100, 8, 400), 7)]
 SPEC_ROW_L0_TIMED = [(1536, 48), (800, 400)]
+# K1 on phase service's path: the slot batch (8 slots x 512 rows, 64
+# columns, flattened) and the Hogwild! predictor over realsim_like's
+# whole 2000 x 400 (its 512 x 400 rows are timed above)
+SERVICE_ROW_L0_TIMED = [(4096, 64), (2000, 400)]
 # the registry's specs beyond upper_bound, run by phases specs and
 # specs-vs-cpu
 NEW_SPECS = ("variance_sparsity", "scalability_study", "diversity", "ls",
@@ -205,7 +232,7 @@ def time_l0(dev, kc, metrics):
         shift.append({"shape": [nb, b, d, r], "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound, "bound_by": by, "library_ms": None})
     rows = []
-    for n, d in ROW_L0_TIMED + SPEC_ROW_L0_TIMED:
+    for n, d in ROW_L0_TIMED + SPEC_ROW_L0_TIMED + SERVICE_ROW_L0_TIMED:
         nbytes = n * d * 4 + n * 4
         bound, by = _bound_ms(nbytes, 2 * n * d)
         ms, plain_ms, library_ms = _timed(
@@ -257,7 +284,7 @@ def check_kernels(dev):
     err = 0.0
     for i, (n, d) in enumerate([(4000, 400), (512, 400), (512, 28),
                                 (512, 300), (257, 1025), (33, 7), (1, 1)]
-                               + SPEC_ROW_L0_TIMED):
+                               + SPEC_ROW_L0_TIMED + SERVICE_ROW_L0_TIMED):
         x = data((n, d), i)
         y = x + (data((n, d), 100 + i, density=0.3) * 0.5)
         for other in (None, torch.zeros_like(x), y.contiguous()):
@@ -436,6 +463,8 @@ def check_ecd_compress(dev):
     # buckets and of ls's d = 28 ones
     cases += [((1, 400), 0), ((4, 400), 0), ((8, 400), 0), ((16, 400), 0),
               ((1, 28), 0), ((16, 28), 0)]
+    # the two buckets of phase service's ECD-PSGD escalation (m = 1, 2, 4)
+    cases += [((4, 28), 0)]
     err = 0.0
     for i, ((r, d), offset) in enumerate(cases):
         ins = _tail_inputs(dev, r, d, 500 + i, offset)
@@ -1030,6 +1059,322 @@ def check_specs_against_cpu(iters: int = 60):
     return report
 
 
+# phase service: the analytic batch (six higgs_like sets, one realsim_like
+# set past the 512 x 64 envelope, one raw X too small to measure) and the
+# two escalations, each shared by four concurrent requests
+SERVICE_BATCH = (
+    [{"dataset": {"generator": "higgs_like", "kwargs": {"n": 2000, "d": 28},
+                  "seed": s}, "request_id": f"higgs-{s}"} for s in range(6)]
+    + [{"dataset": {"generator": "realsim_like",
+                    "kwargs": {"n": 2000, "d": 400, "density": 0.05}},
+        "request_id": "realsim"},
+       {"X": [[1.0, 2.0, 3.0]], "request_id": "raw-invalid"}])
+SERVICE_ESCALATIONS = (
+    {"dataset": {"generator": "higgs_like", "kwargs": {"n": 4000, "d": 28}},
+     "algorithm": "ecd_psgd", "escalate": True},
+    {"dataset": {"generator": "realsim_like",
+                 "kwargs": {"n": 2000, "d": 400, "density": 0.05}},
+     "algorithm": "hogwild", "kwargs": {"gamma": 0.05}, "escalate": True})
+STRATEGIES = ("hogwild", "sync", "dadm", "momentum", "local_sgd", "svrg")
+
+
+def _http(url, payload=None):
+    """GET (no payload) or POST a JSON payload to the local server; returns
+    the decoded JSON body (or the text of ``/metrics``)."""
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        body = r.read().decode()
+    return body if url.split("?")[0].endswith("/metrics") else \
+        json.loads(body)
+
+
+def _count_deltas(fn):
+    """Launch counts of ``fn()`` with every counter set to 0 just before
+    and read just after (the device synchronised on both sides)."""
+    import torch
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def run_service(root):
+    """Phase service: `ServiceServer(AdvisorService(device="cuda"))` on an
+    ephemeral port of this host, with a fresh cache directory.
+
+    Analytic batch: ``POST /probe_batch`` of `SERVICE_BATCH` three times;
+    statuses and tiers as expected, K1 launched twice per batch (one
+    launch for the slot batch, one for the oversize fallback), K2 and the
+    fused tail never, every integer m_max equal to the CPU service's for
+    the same requests.  Escalations: eight threads ``POST /probe`` the two
+    `SERVICE_ESCALATIONS` four times each; exactly two sweeps computed,
+    one artifact per fingerprint and the same artifact for every waiter;
+    K1, K2 and fused-tail launches equal to `expected_launches` of the two
+    escalation specs plus one K1 launch per request's measurement; the
+    measured and predicted m_max equal to the CPU port's runs of the same
+    specs, curves within 1e-5 (ECD-PSGD 2e-2).  ``GET /metrics`` must
+    parse under the strict parser."""
+    import threading
+    import torch
+    from repro_torch.experiments import runner
+    from repro_torch.service.api import AdvisorService
+    from repro_torch.service.http import ServiceServer, decode_probe_request
+    from repro_torch.telemetry import trace
+    from repro_torch.telemetry.metrics import parse_prometheus_text
+
+    def _spans_ms(fn):
+        """Wall ms of ``fn()`` and the ms of each span name it traced."""
+        tracer = trace.start()
+        t0 = time.perf_counter()
+        try:
+            fn()
+        finally:
+            trace.stop()
+        phases = trace.phase_breakdown(tracer.events)["phases"]
+        return {"wall": (time.perf_counter() - t0) * 1e3,
+                **{name: p["total_us"] / 1e3 for name, p in phases.items()}}
+
+    report = {}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        cache_dir = os.path.join(tmp, "cache")
+        svc = AdvisorService(device="cuda", cache_dir=cache_dir)
+        cpu = AdvisorService(device="cpu", cache_dir=os.path.join(tmp, "cpu"))
+        with ServiceServer(svc) as srv:
+            batch_ms, batch_launches = [], None
+            for _ in range(3):
+                t0 = time.perf_counter()
+                resp, launches = _count_deltas(lambda: _http(
+                    srv.url + "/probe_batch", {"requests": SERVICE_BATCH}))
+                batch_ms.append((time.perf_counter() - t0) * 1e3)
+                got = [(r["status"], r["tier"]) for r in resp["responses"]]
+                if got != [("ok", "analytic")] * 7 + [("invalid", None)]:
+                    raise AssertionError(f"analytic batch answered {got}")
+                counts = {k: launches[k] for k in SWEEP_KERNELS}
+                if counts != {"l0_rows": 2, "l0_shift_sum": 0,
+                              "ecd_compress_rows": 0}:
+                    raise AssertionError(f"analytic batch launches {counts}")
+                batch_launches = batch_launches or counts
+            on_cpu = cpu.probe_batch([decode_probe_request(p)
+                                      for p in SERVICE_BATCH])
+            for g, c in zip(resp["responses"], on_cpu):
+                if (g["status"], g["tier"]) != (c.status, c.tier):
+                    raise AssertionError(f"{g['request_id']}: tiers differ")
+                if c.tier is None:
+                    continue
+                for strat in STRATEGIES:
+                    a = g["report"][strat]["predicted_m_max"]
+                    b = c.report[strat]["predicted_m_max"]
+                    if a != b:
+                        raise AssertionError(f"{g['request_id']} {strat}: "
+                                             f"m_max gpu {a} cpu {b}")
+            report["analytic_batch_ms"] = batch_ms
+            # where a warm batch's time goes: the device's busy share
+            # under torch.profiler, then the service's own spans
+            report["analytic_batch_profile"] = _profile(lambda: _http(
+                srv.url + "/probe_batch", {"requests": SERVICE_BATCH}), 5)
+            report["analytic_batch_spans_ms"] = _spans_ms(lambda: _http(
+                srv.url + "/probe_batch", {"requests": SERVICE_BATCH}))
+            report["analytic_m_max"] = {
+                r["request_id"]: {s: r["report"][s]["predicted_m_max"]
+                                  for s in STRATEGIES}
+                for r in resp["responses"] if r["tier"]}
+
+            specs = [svc.tiers.escalation_spec(decode_probe_request(p))
+                     for p in SERVICE_ESCALATIONS]
+            before = runner.SWEEP_COMPUTES
+            answers = [None] * 8
+            barrier = threading.Barrier(8)
+
+            def ask(i):
+                barrier.wait(timeout=60)
+                t0 = time.perf_counter()
+                body = _http(srv.url + "/probe?full=1",
+                             SERVICE_ESCALATIONS[i % 2])
+                answers[i] = (body, time.perf_counter() - t0)
+
+            def escalate():
+                threads = [threading.Thread(target=ask, args=(i,))
+                           for i in range(8)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=900)
+                if any(t.is_alive() for t in threads) or None in answers:
+                    raise AssertionError("an escalation did not answer")
+
+            tracer = trace.start()
+            try:
+                _, launches = _count_deltas(escalate)
+            finally:
+                trace.stop()
+            report["escalation_spans_ms"] = {
+                name: round(p["total_us"] / 1e3, 3) for name, p in
+                trace.phase_breakdown(tracer.events)["phases"].items()}
+            computes = runner.SWEEP_COMPUTES - before
+            if computes != 2:
+                raise AssertionError(f"{computes} sweeps computed, not 2")
+            want = {k: 8 if k == "l0_rows" else 0 for k in SWEEP_KERNELS}
+            for sp in specs:
+                for k, v in expected_launches(sp).items():
+                    if k in want:
+                        want[k] += v
+            got = {k: launches[k] for k in SWEEP_KERNELS}
+            if got != want or any(launches[k] for k in FUSED_AWAY):
+                raise AssertionError(f"escalation launches {launches}, "
+                                     f"expected {want}")
+            report["escalation_wall_s"] = [w for _, w in answers]
+            arts = sorted(n for n in os.listdir(cache_dir)
+                          if n.endswith(".json"))
+            if len(arts) != 2:
+                raise AssertionError(f"cache holds {arts}")
+            for k, sp in enumerate(specs):
+                group = [a for a, _ in answers[k::2]]
+                blobs = {json.dumps(a["escalation"]["artifact"],
+                                    sort_keys=True) for a in group}
+                esc = group[0]["escalation"]
+                if len(blobs) != 1 or any(
+                        a["tier"] != "measured" or a["status"] != "ok"
+                        or a["escalation"]["status"] != "ok" for a in group):
+                    raise AssertionError(f"{sp.name}: waiters differ")
+                ref = runner.run_sweep(sp, device="cpu", use_cache=False)
+                job, ref_job = (esc["artifact"]["jobs"][esc["job_key"]],
+                                ref["jobs"][esc["job_key"]])
+                tol = 2e-2 if sp.jobs[0].algorithm == "ecd_psgd" else 1e-5
+                diff = _max_diff(job["losses"], ref_job["losses"])
+                pred = [j["predicted"]["predicted_m_max"]
+                        for j in (job, ref_job)]
+                if diff > tol or pred[0] != pred[1] or \
+                        job["measured_m_max"] != ref_job["measured_m_max"]:
+                    raise AssertionError(
+                        f"{sp.name}: gpu vs cpu curves {diff} (tol {tol}), "
+                        f"measured {job['measured_m_max']} / "
+                        f"{ref_job['measured_m_max']}, predicted {pred}")
+                report[sp.jobs[0].algorithm] = {
+                    "measured_m_max": job["measured_m_max"],
+                    "predicted_m_max": pred[0], "max_abs_diff_vs_cpu": diff,
+                    "tol": tol, "cache_hits": sum(
+                        a["escalation"]["cache_hit"] for a in group)}
+            report["sweep_computes"] = computes
+            report["ecd_escalation_sweep_profile"] = _profile(
+                lambda: runner.run_sweep(specs[0], device="cuda",
+                                         use_cache=False), 5)
+
+            text = _http(srv.url + "/metrics")
+            fams = parse_prometheus_text(text)
+            report["metrics"] = {
+                name + (json.dumps(labels, sort_keys=True) if labels else ""):
+                    value
+                for fam, body in fams.items()
+                if fam.startswith(("repro_service_", "repro_sweep_"))
+                for name, labels, value in body["samples"]}
+        torch.cuda.synchronize()
+    return report, {"analytic_batch": batch_launches, "escalations": got}
+
+
+def check_robustness(root):
+    """Phase service, robustness on the card, at a quick size: a job made
+    to raise ``torch.cuda.OutOfMemoryError`` once ends ``retried:1`` and
+    its artifact equals a clean run's byte for byte once that status reads
+    "ok" again; a run cut after its first job resumes from the journal
+    (``job_replayed``) into a byte-identical artifact; a mutated artifact
+    is quarantined to ``.corrupt``."""
+    import warnings
+    import torch
+    from repro_torch.experiments import cache as artifact_cache
+    from repro_torch.experiments import engine, runner
+    from repro_torch.experiments.spec import (DatasetSpec, EpsilonSpec,
+                                              JobSpec, SweepSpec,
+                                              fingerprint)
+    from repro_torch.telemetry import RECORDER
+
+    spec = SweepSpec(
+        name="smoke_robust", ms=(1, 2, 4), iters=60, eval_every=20,
+        datasets={"d0": DatasetSpec("higgs_like", {"n": 512, "d": 28})},
+        jobs=(JobSpec("minibatch", "d0"), JobSpec("ecd_psgd", "d0"),
+              JobSpec("hogwild", "d0", {"gamma": 0.05}, predict=True)),
+        epsilon=EpsilonSpec(probe_m=2, frac=0.7)).validate()
+    fp = fingerprint(spec)
+    real = engine.sweep
+
+    def failing(exc, at):
+        calls = []
+
+        def sweep(*args, **kwargs):
+            calls.append(1)
+            if len(calls) == at:
+                raise exc
+            return real(*args, **kwargs)
+        return sweep
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("clean", "retry", "cut")}
+        golden = read(runner.run_sweep(spec, device="cuda",
+                                       cache_dir=dirs["clean"])
+                      ["cache"]["path"])
+        try:
+            engine.sweep = failing(torch.cuda.OutOfMemoryError(
+                "CUDA out of memory (injected)"), 1)
+            retried = runner.run_sweep(spec, device="cuda",
+                                       cache_dir=dirs["retry"],
+                                       retry_backoff_s=0.0)
+        finally:
+            engine.sweep = real
+        statuses = [jr["status"] for jr in retried["jobs"].values()]
+        if statuses != ["retried:1", "ok", "ok"]:
+            raise AssertionError(f"retry statuses {statuses}")
+        payload = json.loads(read(retried["cache"]["path"]))
+        payload["jobs"]["minibatch/d0"]["status"] = "ok"
+        payload["checksum"] = artifact_cache._payload_checksum(payload)
+        if json.dumps(payload, default=float).encode() != golden:
+            raise AssertionError("the retried artifact differs from a clean "
+                                 "run's beyond its status")
+        out["retry"] = statuses
+
+        try:
+            engine.sweep = failing(KeyboardInterrupt("cut"), 2)
+            runner.run_sweep(spec, device="cuda", cache_dir=dirs["cut"])
+            raise AssertionError("the cut run was not cut")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            engine.sweep = real
+        seq = RECORDER.snapshot()["seq"]
+        resumed = runner.run_sweep(spec, device="cuda",
+                                   cache_dir=dirs["cut"])
+        replayed = [e["job"] for e in RECORDER.snapshot(since=seq)["events"]
+                    if e["kind"] == "job_replayed"]
+        if replayed != ["minibatch/d0"] or \
+                read(resumed["cache"]["path"]) != golden:
+            raise AssertionError(f"journal resume: replayed {replayed}, "
+                                 f"identical bytes "
+                                 f"{read(resumed['cache']['path']) == golden}")
+        out["journal_replayed"] = replayed
+
+        path = resumed["cache"]["path"]
+        mutated = json.loads(read(path))
+        mutated["jobs"]["minibatch/d0"]["losses"][0][0] += 1e-9
+        with open(path, "w") as f:
+            json.dump(mutated, f)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            hit = artifact_cache.load(dirs["cut"], spec.name, fp)
+        if hit is not None or not os.path.exists(path + ".corrupt") or \
+                not any("quarantined" in str(w.message) for w in caught):
+            raise AssertionError("the mutated artifact was not quarantined")
+        out["quarantined"] = os.path.basename(path) + ".corrupt"
+    return out
+
+
 def _ptxas_summary(text: str):
     """One line per kernel of ``nvcc -Xptxas -v``'s report: its name
     (demangled where ``c++filt`` exists), registers and spills."""
@@ -1188,6 +1533,36 @@ def main() -> int:
           f"{json.dumps(spec_agreement)}", flush=True)
 
     t0 = time.perf_counter()
+    allocated = [torch.cuda.memory_allocated()]
+    service, service_launches = run_service(root)
+    print(f"phase service: ok in {time.perf_counter() - t0:.2f}s "
+          f"[{card}] analytic batch of 8 probes ms "
+          f"{json.dumps(service.pop('analytic_batch_ms'))}, escalation "
+          f"wall s {json.dumps(service.pop('escalation_wall_s'))}, "
+          f"launches {json.dumps(service_launches)}", flush=True)
+    print(f"  service metrics {json.dumps(service.pop('metrics'))}",
+          flush=True)
+    print(f"  service {json.dumps(service)}", flush=True)
+    t0 = time.perf_counter()
+    robust = check_robustness(root)
+    print(f"  service robustness in {time.perf_counter() - t0:.2f}s "
+          f"{json.dumps(robust)}", flush=True)
+    # what the phase left allocated on the card (phase serve's peak
+    # counts it): after a collection of reference cycles, and after
+    # freeing the cuBLAS workspaces that PyTorch keeps per handle, one
+    # for each thread that ran a matrix product at once
+    allocated.append(torch.cuda.memory_allocated())
+    gc.collect()
+    allocated.append(torch.cuda.memory_allocated())
+    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear_workspaces is not None:
+        clear_workspaces()
+        allocated.append(torch.cuda.memory_allocated())
+    print(f"  service device memory allocated before / after / after gc / "
+          f"after freeing cuBLAS workspaces GB "
+          f"{json.dumps([a / 1e9 for a in allocated])}", flush=True)
+
+    t0 = time.perf_counter()
     report, serve_launches, params, batch, logits = run_serve(dev)
     print(f"phase serve: ok in {time.perf_counter() - t0:.2f}s gemma3-1b "
           f"bf16 prefill 4x2048, greedy 4x(16+24) "
@@ -1210,7 +1585,10 @@ def main() -> int:
             rec["launches_by_spec"] = {
                 "upper_bound": launches[name],
                 **{spec: counts[name]
-                   for spec, counts in spec_launches.items()}}
+                   for spec, counts in spec_launches.items()},
+                **({f"service_{path}": counts[name]
+                    for path, counts in service_launches.items()}
+                   if name in SWEEP_KERNELS else {})}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "also_replaces", "note", "routes", "max_abs_err_by_dtype",

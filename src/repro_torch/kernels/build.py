@@ -5,13 +5,16 @@ for ``sm_90a`` (Hopper) and the CPython binding with the host compiler,
 all in one ``torch.utils.cpp_extension.load`` call, into
 ``build/torch_kernels/`` at the repository root; later calls reuse the
 loaded module.  Fast math is deliberately off: the quantization kernel
-must divide and round exactly as the reference does.
+must divide and round exactly as the reference does.  The build and the
+wrappers' launch counters are safe to use from several threads (the
+advisor service launches kernels from its request threads).
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", name)
@@ -32,15 +35,32 @@ def ptxas_command(name: str) -> list[str]:
             os.path.join(_HERE, "csrc", name), "-o", os.devnull]
 
 
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
-def extension():
-    """The loaded ``repro_torch_kernels`` module (built on first call)."""
+def _load():
     from torch.utils.cpp_extension import load
     build_dir = os.path.normpath(BUILD_DIR)
     os.makedirs(build_dir, exist_ok=True)
     return load(name="repro_torch_kernels", sources=SOURCES,
                 build_directory=build_dir, extra_cflags=["-O3"],
                 extra_cuda_cflags=CUDA_FLAGS, verbose=False)
+
+
+def extension():
+    """The loaded ``repro_torch_kernels`` module (built on first call;
+    concurrent first calls build once)."""
+    with _BUILD_LOCK:
+        return _load()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock: launches from
+    concurrent threads are all counted."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(err: int, name: str) -> None:

@@ -80,7 +80,7 @@ def l0_rows(x, y=None, tol=0.0):
                                     0 if y is None else y.data_ptr(),
                                     out.data_ptr(), n, d, float(tol), stream)
     build.check(err, "l0_rows")
-    l0_rows.launches += 1
+    build.count_launch(l0_rows)
     return out
 
 
@@ -221,7 +221,7 @@ def l0_shift_sum(X, r: int, tol=0.0):
         plan.rem, plan.stage_rows, plan.blocks,
         _PACK_BITS if plan.packed else 0, float(tol), stream)
     build.check(err, "l0_shift_sum")
-    l0_shift_sum.launches += 1
+    build.count_launch(l0_shift_sum)
     return out
 
 

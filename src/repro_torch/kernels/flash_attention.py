@@ -125,7 +125,7 @@ def flash_attention_bhsd(q, k, v, causal=True, window=0):
         S, T, D, strides, int(bool(causal)), int(window),
         1.0 / math.sqrt(D), DTYPES[q.dtype], stream)
     build.check(err, "flash_attention")
-    flash_attention_bhsd.launches += 1
+    build.count_launch(flash_attention_bhsd)
     return out
 
 

@@ -89,7 +89,7 @@ def quantize_rows(x, u, scale, bits: int = 8):
         x.data_ptr(), u.data_ptr(), scale.data_ptr(), q.data_ptr(),
         x.shape[0], x.shape[1], qmax, q.element_size(), stream)
     build.check(err, "quantize_rows")
-    quantize_rows.launches += 1
+    build.count_launch(quantize_rows)
     return q
 
 
@@ -122,7 +122,7 @@ def dequantize_rows(q, scale):
         q.data_ptr(), scale.data_ptr(), out.data_ptr(), q.shape[0],
         q.shape[1], q.element_size(), stream)
     build.check(err, "dequantize_rows")
-    dequantize_rows.launches += 1
+    build.count_launch(dequantize_rows)
     return out
 
 
@@ -193,7 +193,7 @@ def ecd_compress_rows(grads, x_half, xs, ys, u, gamma: float, t: int,
         grads.shape[0], grads.shape[1], c["neg_gamma"], c["z_keep"],
         c["y_keep"], c["half"], c["two_t"], qmax, stream)
     build.check(err, "ecd_compress_rows")
-    ecd_compress_rows.launches += 1
+    build.count_launch(ecd_compress_rows)
     return x_new, y_new
 
 

@@ -57,7 +57,7 @@ def rmsnorm_2d(x, gain, eps=EPS):
         x.data_ptr(), gain.data_ptr(), out.data_ptr(), x.shape[0],
         x.shape[1], float(eps), DTYPES[x.dtype], stream)
     build.check(err, "rmsnorm")
-    rmsnorm_2d.launches += 1
+    build.count_launch(rmsnorm_2d)
     return out
 
 

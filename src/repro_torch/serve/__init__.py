@@ -1,4 +1,3 @@
-"""repro_torch.serve — prefill and single-token decode steps and the
-greedy generate loop of the port's LM (``engine.py``).  The reference's
-``SlotDriver`` and ``mask_tree`` wait for the service port (ROADMAP A13).
-"""
+"""repro_torch.serve — prefill and single-token decode steps, the greedy
+generate loop and the batched request driver ``SlotDriver`` with its
+``mask_tree`` (``engine.py``)."""

@@ -550,3 +550,112 @@ def test_new_algorithms_on_the_card_match_the_cpu(alg, kw, cuda_device):
     for a, b in zip(gpu["losses_seeds"], cpu["losses_seeds"]):
         for ca, cb in zip(a, b):
             assert ca == pytest.approx(cb, abs=1e-5)
+
+
+@pytest.mark.cuda
+def test_slot_batch_k1_matches_plain(cuda_device):
+    """The slot batch's characters on the card: one K1 launch over the
+    flattened (n_slots * R, D) batch, every character equal to the plain
+    version's within 1e-6 (the counts exactly), an empty slot all
+    zeros."""
+    import numpy as np
+    from repro_torch.core import advisor
+    rng = np.random.default_rng(0)
+    S, R_, D = 8, 512, 64
+    Xp = np.zeros((S, R_, D), np.float32)
+    rm = np.zeros((S, R_), np.float32)
+    cm = np.zeros((S, D), np.float32)
+    for s, (r, c) in enumerate([(512, 28), (400, 64), (2, 1), (37, 13),
+                                (512, 64), (100, 5), (300, 40)]):
+        Xp[s, :r, :c] = (rng.random((r, c)) > 0.6) * rng.normal(size=(r, c))
+        rm[s, :r] = 1.0
+        cm[s, :c] = 1.0
+    inputs = [torch.tensor(a) for a in (Xp, rm, cm)]
+    kernels.reset_launch_counts()
+    got = advisor.masked_dataset_characters(
+        *(t.to(cuda_device) for t in inputs))
+    assert kernels.launch_counts()["l0_rows"] == 1
+    want = advisor.masked_dataset_characters(*inputs)
+    for k in ("n", "d", "omega", "sparsity", "density"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    for k, v in want.items():
+        assert torch.allclose(got[k].cpu(), v, rtol=0, atol=1e-6), k
+        assert float(got[k][7]) == (1.0 if k == "density" else 0.0), k
+
+
+@pytest.mark.cuda
+def test_l0_shift_sum_from_concurrent_threads(cuda_device):
+    """K2 from eight threads at once, with shapes whose batch counts
+    differ (one beyond the counter buffer's first size): every total
+    equals the plain version's and every launch is counted."""
+    import threading
+    shapes = [((1, 512, 400), 8), ((64, 8, 28), 7), ((3000, 8, 20), 7),
+              ((1, 1536, 48), 8)] * 2
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    inputs = [torch.rand(*s, device=cuda_device, generator=g).round()
+              for s, _ in shapes]
+    want = [kc.l0_shift_sum_plain(x, r) for x, (_, r) in zip(inputs, shapes)]
+    kernels.reset_launch_counts()
+    got, errors = [None] * len(shapes), []
+
+    def run(i):
+        try:
+            for _ in range(20):
+                got[i] = kc.l0_shift_sum(inputs[i], shapes[i][1])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(shapes))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and not any(t.is_alive() for t in threads)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert kernels.launch_counts()["l0_shift_sum"] == 20 * len(shapes)
+
+
+@pytest.mark.cuda
+def test_service_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """The advisor service on the card answers what it answers on the
+    CPU: tiers, statuses and integer m_max of an analytic batch (slot
+    batch and oversize fallback, one K1 launch each) and of a measured
+    escalation."""
+    import numpy as np
+    from repro_torch.experiments.spec import DatasetSpec
+    from repro_torch.service.api import AdvisorService, ProbeRequest
+
+    def probes():
+        X = np.random.default_rng(0).normal(size=(40, 6))
+        return ([ProbeRequest(X=X, request_id="raw"),
+                 ProbeRequest(X=np.full((3, 3), np.nan), request_id="bad")]
+                + [ProbeRequest(dataset=DatasetSpec("higgs_like",
+                                                    {"n": 600, "d": 28}, s),
+                                request_id=f"h{s}") for s in range(3)]
+                + [ProbeRequest(dataset=DatasetSpec(
+                    "realsim_like", {"n": 600, "d": 200, "density": 0.05}),
+                    request_id="wide")])
+
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        svc = AdvisorService(device=dev, cache_dir=str(tmp_path / str(dev)),
+                             sweep_iters=60, sweep_eval_every=20)
+        kernels.reset_launch_counts()
+        resp = svc.probe_batch(probes())
+        if dev == cuda_device:
+            assert kernels.launch_counts()["l0_rows"] == 2
+        esc = svc.probe(ProbeRequest(
+            dataset=DatasetSpec("higgs_like", {"n": 400, "d": 28}),
+            escalate=True, algorithm="minibatch"))
+        out[str(dev)] = resp + [esc]
+    for g, c in zip(out[str(cuda_device)], out["cpu"]):
+        assert (g.status, g.tier) == (c.status, c.tier)
+        if g.status == "ok" and g.tier == "analytic":
+            for strat in ("hogwild", "sync", "dadm", "momentum",
+                          "local_sgd", "svrg"):
+                assert g.report[strat]["predicted_m_max"] == \
+                    c.report[strat]["predicted_m_max"]
+    assert out[str(cuda_device)][-1].escalation["measured_m_max"] == \
+        out["cpu"][-1].escalation["measured_m_max"]
