@@ -90,8 +90,33 @@
    2e-2 relative L2, and, in float32 on a 6-layer cut, the prefill's
    logits at each of 1100 positions against token-by-token decoding
    within 5e-4.
-7. Prints one JSON line with each kernel's numbers (the sweep kernels'
-   launches also per spec and per service path), then the final line
+7. Phase train: ``launch.train.train_loop`` at full-width gemma3-1b in
+   bfloat16 on the card (AdamW, lr 3e-4, every layer recomputed in the
+   backward, batches of 8 x 1024 tokens from ``hmm_stream``), 10 sync
+   steps, then 5 stale steps from fresh weights, with the counters set to
+   0 just before each and read just after: training takes the reference's
+   arithmetic, so no kernel may launch.  Per strategy: losses, each
+   step's ms, the median after the first, tokens/s, the step's model
+   flops (``launch.analytic``) as a share of the bf16 peak and the peak
+   memory; the loss must fall (the mean of the last three steps below the
+   first).  One more sync step runs under ``torch.profiler``.
+8. Phase gossip: ``train.steps.make_gossip_step`` at full-width gemma3-1b
+   with 2 replicas stacked on the card, 4 steps on one fixed hmm_stream
+   batch of 8 x 1024 tokens (4 x 1024 a replica) at lr 2e-3, the
+   counters set to 0 just before and read just after: K3 and K4 must each
+   launch exactly 2 x 83 times a step (one per reference leaf and
+   compression), the fused tail and every other kernel never; the loss
+   must fall.  Prints each step's ms, the uniform draws' share of a step,
+   the peak memory, the losses and the replicas' spread.  K3/K4 are also
+   checked against their plain versions (K3 equal, K4 within 1 ulp) and
+   timed beside them, with their byte bounds, at the gossip's embedding
+   leaf (2 x 301989888) and one segment leaf (2 x 39813120).
+9. Phase train-vs-cpu: reduced gemma3-1b in float32 from the same weights
+   on the card and the CPU: 5 sync and 5 stale steps (losses within 1e-4
+   relative), 3 gossip steps at R = 4 (within 1e-3).
+10. Prints one JSON line with each kernel's numbers (the sweep kernels'
+   launches also per spec and per service path, K3/K4's per path, their
+   record at the gossip's largest leaf), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU, outside a checkout of
@@ -116,7 +141,8 @@ F32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
 
 SWEEP_KERNELS = ("l0_rows", "l0_shift_sum", "ecd_compress_rows")
-# replaced on the sweep's path by ecd_compress_rows; checked standalone
+# K3/K4: replaced on the sweep's path by ecd_compress_rows; the gossip
+# step (phase gossip) launches them standalone
 FUSED_AWAY = ("quantize_rows", "dequantize_rows")
 SERVE_KERNELS = ("rmsnorm", "flash_attention")
 
@@ -423,8 +449,10 @@ def check_kernels(dev):
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
         "library_ms": None}
     for name in FUSED_AWAY:
-        records[name]["note"] = ("off the sweep's path: ecd_compress_rows "
-                                 "fuses it with the step's updates")
+        records[name]["note"] = ("on the gossip step's path (one launch per "
+                                 "leaf and compression); off the sweep's: "
+                                 "ecd_compress_rows fuses it with the "
+                                 "step's updates")
     records["ecd_compress_rows"] = check_ecd_compress(dev)
     return records
 
@@ -1375,6 +1403,297 @@ def check_robustness(root):
     return out
 
 
+# phase train: full-width gemma3-1b, batches of 8 x 1024 tokens from
+# hmm_stream; phase gossip: 2 replicas on one fixed hmm_stream batch of
+# 8 x 1024 tokens, 4 x 1024 a replica (as examples/gossip_ecd_psgd.py
+# trains on a fixed batch), at the example's lr
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 1024, 3e-4
+TRAIN_STEPS = {"sync": 10, "stale": 5}
+GOSSIP_REPLICAS, GOSSIP_BATCH, GOSSIP_SEQ, GOSSIP_STEPS = 2, 8, 1024, 4
+GOSSIP_LR = 2e-3
+# K3/K4 at the gossip step's largest leaf (the tied embedding, 262144 x
+# 1152) and at one stacked segment leaf (5 layers of 1152 x 6912), the
+# R = 2 replicas as rows
+GOSSIP_QUANT_TIMED = [(2, 262144 * 1152), (2, 5 * 1152 * 6912)]
+
+
+def _falls(losses) -> bool:
+    """The loss falls: the mean of the last three steps is below the
+    first step's."""
+    tail = losses[-3:]
+    return all(math.isfinite(x) for x in losses) and \
+        sum(tail) / len(tail) < losses[0]
+
+
+def run_train(dev):
+    """Phase train: ``train_loop`` at full-width gemma3-1b (bf16, AdamW,
+    every layer recomputed in the backward) on hmm_stream batches, sync
+    for ``TRAIN_STEPS["sync"]`` steps, then stale from fresh weights.  Per
+    strategy: losses, each step's wall ms (host clock; the loop reads each
+    loss, which waits for the step), the median after the first step,
+    tokens/s, the step's model flops (``launch.analytic``) as a share of
+    the bf16 peak, the peak memory.  Training runs no kernel of the port
+    (the reference's arithmetic, as its train steps): every launch counter
+    must stay 0.  One more sync step runs under ``torch.profiler``."""
+    import statistics
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.lm import LMConfig, hmm_stream
+    from repro_torch.launch import analytic
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import steps as S
+
+    cfg = get_arch("gemma3-1b")
+    flops = analytic.model_flops(cfg, InputShape(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"))["model_flops"]
+    report, prof = {}, None
+    for strategy, n in TRAIN_STEPS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        params, losses, step_ms = train_loop(
+            cfg, steps=n, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            lr=TRAIN_LR, strategy=strategy, log_every=5, device=dev)
+        launches = kernels.launch_counts()
+        med = statistics.median(step_ms[1:])
+        report[strategy] = {
+            "steps": n, "losses": losses, "step_ms": step_ms,
+            "median_step_ms": med,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (med / 1e3),
+            "model_flops": flops,
+            "bf16_peak_share": flops / (med / 1e3) / BF16_TENSOR_OPS_PER_S,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
+        if any(launches.values()):
+            raise AssertionError(f"the {strategy} train path launched "
+                                 f"kernels: {launches}")
+        if not _falls(losses):
+            raise AssertionError(f"{strategy}: the loss did not fall: "
+                                 f"{losses}")
+        if strategy == "sync":
+            state = S.init_train_state(cfg, "sync", params=params)
+            step = S.make_train_step(cfg, lr=TRAIN_LR)
+            batch = next(hmm_stream(R.PRNGKey(1), LMConfig(
+                cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 1, device=dev))
+            step(state, batch)
+            prof = _profile(lambda: step(state, batch)[1]["loss"].item())
+            del state, step, batch
+        del params
+    return report, prof
+
+
+def _draw_ms(dev, shapes, replicas):
+    """Host ms (ending in a synchronise) of the gossip step's uniform
+    draws alone: two (replicas, numel) draws per leaf."""
+    import torch
+    from repro_torch import random as R
+    keys = torch.stack([R.PRNGKey(i, device=dev) for i in range(replicas)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for numel in shapes:
+        for _ in range(2):
+            R.uniform(keys, (numel,))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def run_gossip(dev):
+    """Phase gossip: ``make_gossip_step`` at full-width gemma3-1b (bf16)
+    with ``GOSSIP_REPLICAS`` replicas stacked on the card, ``GOSSIP_STEPS``
+    steps on one fixed hmm_stream batch, the counters set to 0 just before
+    and read just after: K3 and K4 must each launch exactly twice per
+    reference leaf a step (83 leaves), the fused tail and every other
+    kernel never, and neither plain version of K3/K4 may run.  Reports
+    losses, each step's ms, the uniform draws' share of a step (timed
+    alone), the peak memory and the replicas' spread; the loss must
+    fall."""
+    import statistics
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch import tree as T
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.lm import LMConfig, hmm_stream
+    from repro_torch.kernels import quantize as kq
+    from repro_torch.train import steps as S
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("gemma3-1b")
+    state = S.init_gossip_state(
+        cfg, GOSSIP_REPLICAS,
+        generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    leaves = T.flatten(state["y"])[0]
+    batch = next(hmm_stream(R.PRNGKey(2), LMConfig(
+        cfg.vocab_size, GOSSIP_SEQ, GOSSIP_BATCH), 1, device=dev))
+    step = S.make_gossip_step(cfg, replicas=GOSSIP_REPLICAS, lr=GOSSIP_LR)
+    # the plain versions must not run on this path: count any call
+    plain_calls = []
+    real_plain = {name: getattr(kq, name) for name in (
+        "quantize_rows_plain", "dequantize_rows_plain")}
+    for name, fn in real_plain.items():
+        setattr(kq, name, lambda *a, _f=fn, _n=name, **k: (
+            plain_calls.append(_n), _f(*a, **k))[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, step_ms = [], []
+    try:
+        for _ in range(GOSSIP_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for name, fn in real_plain.items():
+            setattr(kq, name, fn)
+    launches = kernels.launch_counts()
+    if plain_calls:
+        raise AssertionError(f"the gossip step ran plain versions on the "
+                             f"card: {sorted(set(plain_calls))}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = 2 * len(leaves)
+    want = {**{k: 0 for k in launches},
+            "quantize_rows": per_step * GOSSIP_STEPS,
+            "dequantize_rows": per_step * GOSSIP_STEPS}
+    if launches != want:
+        raise AssertionError(f"{GOSSIP_STEPS} gossip steps launched "
+                             f"{launches}, expected {want}")
+    if not _falls(losses):
+        raise AssertionError(f"gossip: the loss did not fall: {losses}")
+    spread = max(float((p.float() - p.float().mean(0)).abs().max())
+                 for p in T.flatten(state["params"])[0])
+    med = statistics.median(step_ms[1:])
+    draw = _draw_ms(dev, [p[0].numel() for p in leaves], GOSSIP_REPLICAS)
+    return {"replicas": GOSSIP_REPLICAS, "leaves": len(leaves),
+            "batch": [GOSSIP_BATCH, GOSSIP_SEQ], "lr": GOSSIP_LR,
+            "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+            "draw_ms": draw, "draw_share": draw / med,
+            "max_memory_allocated_gb": peak, "replica_spread": spread,
+            "launches_per_step": {k: v // GOSSIP_STEPS
+                                  for k, v in launches.items() if v}}, \
+        launches
+
+
+def check_train_against_cpu(dev):
+    """Phase train-vs-cpu: reduced gemma3-1b in float32 (TF32 off) from
+    the same weights on the card and on the CPU: five ``train_loop`` steps
+    each of sync and stale, loss histories within 1e-4 relative; three
+    gossip steps at R = 4 on one fixed batch, losses within 1e-3."""
+    import torch
+    from repro_torch import interop
+    from repro_torch import tree as T
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as M
+    from repro_torch.train import steps as S
+
+    cfg = get_arch("gemma3-1b").reduced()
+    tree = interop.lm_tree(M.init_params(
+        cfg, torch.Generator().manual_seed(2), "cpu"))
+
+    def weights(device):
+        return interop.lm_params(cfg, T.tree_map(torch.clone, tree), device)
+
+    out = {}
+    for strategy in ("sync", "stale"):
+        kw = dict(steps=5, batch_size=4, seq_len=64, lr=2e-3,
+                  strategy=strategy, log_every=1000)
+        _, want, _ = train_loop(cfg, params=weights("cpu"), device="cpu",
+                                **kw)
+        _, got, _ = train_loop(cfg, params=weights(dev), device=dev, **kw)
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        out[strategy] = {"gpu": got, "cpu": want, "max_rel": rel}
+        if not rel <= 1e-4:
+            raise AssertionError(f"{strategy} losses on the card differ from "
+                                 f"the CPU's by {rel:.3e}: {got} vs {want}")
+    g = torch.Generator().manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab_size, (8, 32), generator=g,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    step = S.make_gossip_step(cfg, replicas=4, lr=2e-3)
+    losses = {}
+    for name, device in (("cpu", torch.device("cpu")), ("gpu", dev)):
+        state = S.init_gossip_state(cfg, 4, params=weights(device))
+        b = {k: v.to(device) for k, v in batch.items()}
+        losses[name] = []
+        for _ in range(3):
+            state, metrics = step(state, b)
+            losses[name].append(float(metrics["loss"]))
+    rel = max(abs(g - w) / abs(w)
+              for g, w in zip(losses["gpu"], losses["cpu"]))
+    out["gossip_r4"] = {**losses, "max_rel": rel}
+    if not rel <= 1e-3:
+        raise AssertionError(f"gossip losses on the card differ from the "
+                             f"CPU's by {rel:.3e}: {losses}")
+    return out
+
+
+def time_quantize_gossip(dev):
+    """K3 and K4 at ``GOSSIP_QUANT_TIMED``: each checked against its plain
+    version on the same inputs (K3 equal, K4 within 1 ulp, as in
+    ``check_kernels``; this is where the int64 grid-stride indexing meets
+    6 x 10^8 elements), then timed beside it, with their byte bounds (K3
+    reads x and u and writes int8: 9 bytes an element; K4 reads int8 and
+    writes float32: 5)."""
+    import torch
+    from repro_torch.core import compression
+    from repro_torch.kernels import quantize as kq
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {"quantize_rows": [], "dequantize_rows": []}
+    for r, d in GOSSIP_QUANT_TIMED:
+        x = (torch.rand(r, d, generator=gen, device=dev) - 0.5) * 0.3
+        u = torch.rand(r, d, generator=gen, device=dev)
+        scale = compression.row_scales(x, 8)
+        q = kq.quantize_rows(x, u, scale, 8)
+        qp = kq.quantize_rows_plain(x, u, scale, 8)
+        if q.dtype != qp.dtype or not torch.equal(q, qp):
+            raise AssertionError(f"K3 quantize_rows differs from its plain "
+                                 f"version at ({r}, {d})")
+        err3 = float((q.int() - qp.int()).abs().max())
+        del qp
+        nbytes = r * d * 9 + r * 4
+        bound, by = _bound_ms(nbytes, 5 * r * d)
+        ms, plain_ms = _timed(lambda *a: kq.quantize_rows(*a, 8),
+                              lambda *a: kq.quantize_rows_plain(*a, 8),
+                              (x, u, scale), nbytes, reps=2)
+        out["quantize_rows"].append({
+            "shape": [r, d, 8], "max_abs_err": err3, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+        del x, u
+        dq = kq.dequantize_rows(q, scale)
+        dqp = kq.dequantize_rows_plain(q, scale)
+        diff = torch.abs(dq - dqp)
+        del dq
+        ulp = torch.abs(torch.nextafter(dqp, torch.full_like(dqp, math.inf))
+                        - dqp)
+        if not bool((diff <= ulp).all()):
+            raise AssertionError(f"K4 dequantize_rows differs from its plain "
+                                 f"version by more than 1 ulp at ({r}, {d})")
+        err4 = float(diff.max())
+        del dqp, diff, ulp
+        nbytes = r * d * 5 + r * 4
+        bound, by = _bound_ms(nbytes, r * d)
+        ms, plain_ms = _timed(kq.dequantize_rows, kq.dequantize_rows_plain,
+                              (q, scale), nbytes, reps=2)
+        out["dequantize_rows"].append({
+            "shape": [r, d, 8], "max_abs_err": err4, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+        del q
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _ptxas_summary(text: str):
     """One line per kernel of ``nvcc -Xptxas -v``'s report: its name
     (demangled where ``c++filt`` exists), registers and spills."""
@@ -1460,6 +1779,20 @@ def main() -> int:
               f"ms={rec['ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
               f"({rec['bound_by']}) library_ms={rec['library_ms']:.6f} "
               f"plain_ms={rec['plain_ms']:.6f}", flush=True)
+    for name, by_shape in time_quantize_gossip(dev).items():
+        for rec in by_shape:
+            print(f"  {name} at a gossip shape={rec['shape']} "
+                  f"ms={rec['ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
+                  f"({rec['bound_by']}) plain_ms={rec['plain_ms']:.6f} "
+                  f"max_abs_err={rec['max_abs_err']}", flush=True)
+        # the gossip step (this slice's path) sets the kernel's record:
+        # its largest leaf, with the error measured there; the sweep's
+        # shape goes to "by_shape" with its own
+        rec = records[name]
+        rec["by_shape"] = [{k: rec[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")}] + by_shape
+        rec.update(by_shape[0])
     d400 = records["ecd_compress_rows"].pop("d400")
     print(f"  ecd_compress_rows at d = 400 {json.dumps(d400)}", flush=True)
     print(f"  l0_shift_sum one call under torch.profiler "
@@ -1579,8 +1912,30 @@ def main() -> int:
     print(f"phase serve-check: ok in {time.perf_counter() - t0:.2f}s "
           f"{json.dumps(serve_check)}", flush=True)
 
+    t0 = time.perf_counter()
+    train, train_profile = run_train(dev)
+    print(f"phase train: ok in {time.perf_counter() - t0:.2f}s [{card}] "
+          f"gemma3-1b bf16 AdamW remat batch {TRAIN_BATCH}x{TRAIN_SEQ}",
+          flush=True)
+    for strategy, rep in train.items():
+        print(f"  train {strategy} {json.dumps(rep)}", flush=True)
+    print(f"  train step profile {json.dumps(train_profile)}", flush=True)
+
+    t0 = time.perf_counter()
+    gossip, gossip_launches = run_gossip(dev)
+    print(f"phase gossip: ok in {time.perf_counter() - t0:.2f}s [{card}] "
+          f"{json.dumps(gossip)}", flush=True)
+
+    t0 = time.perf_counter()
+    train_agreement = check_train_against_cpu(dev)
+    print(f"phase train-vs-cpu: ok in {time.perf_counter() - t0:.2f}s "
+          f"{json.dumps(train_agreement)}", flush=True)
+
     for name, rec in records.items():
-        rec["launches"] = launches[name]
+        # K3/K4's path is the gossip step; every other kernel's the sweep's
+        # or serving's
+        rec["launches"] = (gossip_launches[name] if name in FUSED_AWAY
+                           else launches[name])
         if name in SWEEP_KERNELS + FUSED_AWAY:
             rec["launches_by_spec"] = {
                 "upper_bound": launches[name],
@@ -1589,10 +1944,14 @@ def main() -> int:
                 **({f"service_{path}": counts[name]
                     for path, counts in service_launches.items()}
                    if name in SWEEP_KERNELS else {})}
+        if name in FUSED_AWAY:
+            rec["launches_by_path"] = {
+                "gossip": gossip_launches[name],
+                **{f"train_{s}": train[s]["launches"][name] for s in train}}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "also_replaces", "note", "routes", "max_abs_err_by_dtype",
-            "decode", "launches_by_spec")
+            "decode", "launches_by_spec", "launches_by_path", "by_shape")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec}
                                   for rec in records.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,7 @@ import torch
 from repro_torch.analysis import fit as FIT
 from repro_torch.core import metrics as MX
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.tree import flatten
 
 #: default |g| <= tol sparsity threshold shared by the scalar and masked
 #: gradient paths (ScalabilityAdvisor(sparsity_tol=) overrides per
@@ -50,15 +51,8 @@ DATASET_KEYS = ("n", "d", "mean_feature_variance", "sparsity", "density",
 
 
 def tree_leaves(tree) -> List:
-    """A pytree's leaves in the reference's order: dict entries by sorted
-    key, lists and tuples in order, None holding no leaf."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for x in tree for leaf in tree_leaves(x)]
-    return [tree]
+    """A pytree's leaves in the reference's order."""
+    return flatten(tree)[0]
 
 
 def _host(x) -> np.ndarray:

@@ -12,6 +12,11 @@ turned into the port's, so tests can feed both packages identical inputs.
   :func:`lm_params`  the reference LM's ``init_params`` pytree -> the
                    port's ``CausalLM`` (segments unstacked into per-layer
                    blocks in layer-plan order)
+  :func:`lm_tree`  its inverse: a ``CausalLM`` -> the reference's pytree,
+                   each segment's layers stacked on a leading axis
+
+The trainer uses the last two as well: its train states and checkpoints
+hold the reference's leaves, and its models are views of them.
 """
 
 from __future__ import annotations
@@ -67,7 +72,10 @@ def draws(algorithm: str, ref_draws, d: int, device="cpu"):
 
 
 def _array_tensor(a, device):
-    """A numpy array (bfloat16 included) -> a tensor of the same type."""
+    """A numpy array (bfloat16 included) -> a tensor of the same type; a
+    tensor stays itself (moved to ``device`` if it lies elsewhere)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(
@@ -77,10 +85,11 @@ def _array_tensor(a, device):
 
 def lm_params(cfg, params, device="cpu"):
     """The reference's ``models.model.init_params`` pytree, its leaves as
-    numpy arrays, -> the port's ``CausalLM`` with the same weights.  Each
-    segment's leading (layer) axis is unstacked into per-layer blocks in
-    ``layer_plan`` order; tied embeddings and optional QKV biases follow
-    the pytree."""
+    numpy arrays or tensors, -> the port's ``CausalLM`` with the same
+    weights.  Each segment's leading (layer) axis is unstacked into
+    per-layer blocks in ``layer_plan`` order; tied embeddings and optional
+    QKV biases follow the pytree.  Tensor leaves already on ``device`` are
+    not copied: each parameter is a view of its leaf."""
     from repro_torch.models import model as M
     lm = M.CausalLM(cfg, None, torch.device("meta"))
 
@@ -90,7 +99,8 @@ def lm_params(cfg, params, device="cpu"):
                              f"{sorted(pdict.keys())}, reference "
                              f"{sorted(tree)}")
         for name, a in tree.items():
-            a = np.asarray(a)
+            if not isinstance(a, torch.Tensor):
+                a = np.asarray(a)
             t = _array_tensor(a if layer is None else a[layer], device)
             if t.shape != pdict[name].shape:
                 raise ValueError(f"{name}: shape {tuple(t.shape)}, port "
@@ -111,3 +121,51 @@ def lm_params(cfg, params, device="cpu"):
             for part in ("norm1", "attn", "norm2", "mlp"):
                 put(getattr(block, part), stack[part], layer)
     return lm
+
+
+def lm_tree(lm, values=None, out=None):
+    """A ``CausalLM`` -> the reference's ``init_params`` pytree:
+    ``embed``, ``final_norm``, ``lm_head`` when untied, and ``segments``,
+    one dict per segment of ``models.model.segments`` with each leaf's
+    layers stacked on a leading axis (new memory; the other leaves are the
+    parameters themselves, detached).  ``values``, a dict keyed by the
+    port's parameter names (``named_parameters``), puts its tensors in the
+    parameters' places: the same tree of gradients, say.  ``out``, a tree
+    of that structure, receives every leaf in place and is returned."""
+    from repro_torch.models import model as M
+    if values is None:
+        values = {k: v.detach() for k, v in lm.named_parameters()}
+
+    def part(prefix, names, dst, n=None, first=0):
+        got = {}
+        for k in names:
+            if n is not None:
+                got[k] = torch.stack(
+                    [values[f"blocks.{first + i}.{prefix}.{k}"]
+                     for i in range(n)], out=None if dst is None else dst[k])
+            elif dst is None:
+                got[k] = values[f"{prefix}.{k}"]
+            else:
+                got[k] = dst[k].copy_(values[f"{prefix}.{k}"])
+        return got
+
+    def sub(*path):
+        node = out
+        for k in path:
+            node = None if node is None else node[k]
+        return node
+
+    tree = {"embed": part("embed", lm.embed.keys(), sub("embed")),
+            "final_norm": part("final_norm", lm.final_norm.keys(),
+                               sub("final_norm"))}
+    if not lm.cfg.tie_embeddings:
+        tree["lm_head"] = (values["lm_head"] if out is None
+                           else out["lm_head"].copy_(values["lm_head"]))
+    tree["segments"], first = [], 0
+    for i, (_, n) in enumerate(M.segments(lm.cfg)):
+        block = lm.blocks[first]
+        tree["segments"].append({p: part(p, getattr(block, p).keys(),
+                                         sub("segments", i, p), n, first)
+                                 for p in ("attn", "mlp", "norm1", "norm2")})
+        first += n
+    return tree

@@ -10,6 +10,7 @@ functions are thin functions over it:
 
   init_params(cfg, generator, device)           -> CausalLM
   forward(params, cfg, batch, ...)              -> (logits, aux) (prefill)
+  loss_fn(params, cfg, batch, ...)              -> (loss, aux) (training)
   init_decode_state(cfg, batch, max_len, ...)   -> per-layer caches
   decode_step(params, cfg, tokens, state)       -> (logits, new state)
 
@@ -19,19 +20,23 @@ a CUDA tensor, their plain versions on a CPU tensor.
 ``attention_impl="reference"`` runs the reference model's own arithmetic
 with no kernel: :func:`attention.gqa_attention` and the plain RMSNorm.
 Decoding always normalises through K5; its one-token attention is plain
-torch, as in the reference.  MoE, MLA, SSM, shared-attention, encoder,
-vision and M-RoPE models raise NotImplementedError (ROADMAP A14), and so
-does training (``grad_cast``, ``chunked_ce``, ``loss_fn``).
+torch, as in the reference.  Training (:func:`loss_fn`) always takes the
+reference's arithmetic, as the reference's train steps do: the kernels
+have no backward.  Parameters are built with ``requires_grad=False``; a
+trainer turns it on.  MoE, MLA, SSM, shared-attention, encoder, vision
+and M-RoPE models raise NotImplementedError (ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -166,7 +171,7 @@ def init_params(cfg: ArchConfig, generator=None,
 
 def _apply_block(p: AttnBlock, cfg: ArchConfig, h, *, positions,
                  attention_impl="kernel"):
-    """Full-sequence (prefill) block application."""
+    """Full-sequence (train / prefill) block application."""
     use_kernel = attention_impl == "kernel"
     x = apply_norm(cfg.norm, p.norm1, h, use_kernel)
     h = h + attn.gqa_forward(p.attn, cfg, x, positions,
@@ -186,13 +191,51 @@ def _embed_inputs(params: CausalLM, cfg: ArchConfig, batch):
     return h, positions
 
 
+class _GradCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(ctx.dtype)
+
+
+def grad_cast(tree):
+    """Identity whose cotangent is cast to the primal's type, over a dict
+    (or ``ParameterDict``) of tensors: the reference applies it to each
+    layer's parameters so that mixed-precision internals never hand a
+    float32 weight gradient to the reduction."""
+    return {k: _GradCast.apply(v) for k, v in tree.items()}
+
+
+def _cast_block(block: AttnBlock):
+    return types.SimpleNamespace(
+        spec=block.spec, **{part: grad_cast(getattr(block, part))
+                            for part in ("norm1", "attn", "norm2", "mlp")})
+
+
 def forward_hidden(params: CausalLM, cfg: ArchConfig, batch, *,
-                   attention_impl="kernel"):
-    """Prefill trunk.  Returns (final-norm hidden states, aux)."""
+                   remat=False, attention_impl="kernel"):
+    """Train / prefill trunk.  Returns (final-norm hidden states, aux).
+
+    When a backward pass can follow (gradients enabled, a parameter that
+    requires them) each layer's parameters pass through :func:`grad_cast`;
+    ``remat=True`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``), so only layer inputs are kept."""
     h, positions = _embed_inputs(params, cfg, batch)
+    training = torch.is_grad_enabled() and any(
+        p.requires_grad for p in params.parameters())
     for block in params.blocks:
-        h = _apply_block(block, cfg, h, positions=positions,
-                         attention_impl=attention_impl)
+        p = _cast_block(block) if training else block
+        if remat:
+            h = checkpoint(_apply_block, p, cfg, h, positions=positions,
+                           attention_impl=attention_impl,
+                           use_reentrant=False)
+        else:
+            h = _apply_block(p, cfg, h, positions=positions,
+                             attention_impl=attention_impl)
     h = apply_norm(cfg.norm, params.final_norm, h,
                    attention_impl == "kernel")
     aux = {"load_balance_loss": torch.zeros((), dtype=torch.float32,
@@ -214,6 +257,87 @@ def forward(params: CausalLM, cfg: ArchConfig, batch, *,
     h, aux = forward_hidden(params, cfg, batch,
                             attention_impl=attention_impl)
     return project_logits(params, cfg, h), aux
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+# float32 logits one chunk of chunked_ce may hold on one device
+CE_CHUNK_BYTES = 128 * 2 ** 20
+
+
+def _ce_chunk_size(B, S, vocab):
+    """The largest divisor of S whose (B, chunk, vocab) float32 logits fit
+    in ``CE_CHUNK_BYTES`` (at least 1)."""
+    target = max(1, min(S, CE_CHUNK_BYTES // max(B * vocab * 4, 1)))
+    return next(c for c in range(target, 0, -1) if S % c == 0)
+
+
+def _chunk_loss(h_c, lab_c, w, tied):
+    logits = (h_c @ w.t() if tied else h_c @ w).to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    # the label pick as a mask-sum over the vocabulary, as the reference
+    # picks it (it keeps a vocabulary-sharded pick local to each shard)
+    onehot = (torch.arange(logits.shape[-1], device=logits.device)
+              == torch.clamp_min(lab_c, 0)[..., None])
+    ll = torch.sum(torch.where(onehot, logp, torch.zeros_like(logp)), dim=-1)
+    mask = (lab_c >= 0).to(torch.float32)
+    return torch.sum(ll * mask), torch.sum(mask)
+
+
+def chunked_ce(params: CausalLM, cfg: ArchConfig, h, labels, *, chunk=0,
+               constrain=None, constrain_head=None):
+    """Mean next-token cross-entropy without materialising (B, S, V)
+    logits: the sequence goes in chunks, and each chunk's logits are
+    recomputed in the backward pass (``torch.utils.checkpoint``), so the
+    live logits are (B, chunk, V).  ``chunk=0`` picks the largest divisor
+    of S within ``CE_CHUNK_BYTES``; a chunk that does not divide S means
+    one chunk.  Labels below 0 are masked out.  ``constrain*`` are the
+    reference's mesh layout hints: only None is accepted."""
+    _no_layout_hints(constrain=constrain, constrain_head=constrain_head)
+    B, S, _ = h.shape
+    if chunk <= 0:
+        chunk = _ce_chunk_size(B, S, cfg.vocab_size)
+    if S % chunk:
+        chunk = S
+    tied = cfg.tie_embeddings
+    w = params.embed["table"] if tied else params.lm_head
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, chunk):
+        s, n = checkpoint(_chunk_loss, h[:, i:i + chunk],
+                          labels[:, i:i + chunk], w, tied,
+                          use_reentrant=False)
+        tot, cnt = tot + s, cnt + n
+    return -tot / torch.clamp_min(cnt, 1.0)
+
+
+def _no_layout_hints(**hints):
+    given = sorted(k for k, v in hints.items() if v is not None)
+    if given:
+        raise NotImplementedError(
+            f"mesh layout hints {given} need distributed/rules.py, not "
+            f"ported yet (ROADMAP A12/A14)")
+
+
+def loss_fn(params: CausalLM, cfg: ArchConfig, batch, *, remat=False,
+            lb_coef=0.01, constrain=None, ce_chunk=0, constrain_layer=None,
+            constrain_logits=None, constrain_inner=None,
+            constrain_head=None):
+    """Next-token cross-entropy (+ MoE load-balance aux, zero for the
+    dense families): ``(total, {"ce_loss", "load_balance_loss"})``.
+    Always the reference's arithmetic (no kernel); ``constrain*`` are the
+    reference's mesh layout hints: only None is accepted."""
+    _no_layout_hints(constrain=constrain, constrain_layer=constrain_layer,
+                     constrain_inner=constrain_inner)
+    h, aux = forward_hidden(params, cfg, batch, remat=remat,
+                            attention_impl="reference")
+    loss = chunked_ce(params, cfg, h, batch["labels"], chunk=ce_chunk,
+                      constrain=constrain_logits,
+                      constrain_head=constrain_head)
+    total = loss + lb_coef * aux["load_balance_loss"]
+    return total, {"ce_loss": loss, **aux}
 
 
 # ---------------------------------------------------------------------------

@@ -64,19 +64,24 @@ def _words(key):
     return key[..., 0:1], key[..., 1:2]
 
 
-def _hash_counts(key, shape):
+def _hash_counts(key, shape, lo=0, hi=None):
     """Threefry of the row-major linear index of ``shape`` under ``key``:
     the partitionable layout, where element ``i`` is hashed from the
     counter pair ``(i >> 32, i & 0xFFFFFFFF)``.  Output has shape
-    ``key.shape[:-1] + shape``."""
+    ``key.shape[:-1] + shape``; with ``lo``/``hi`` only the counters
+    ``[lo, hi)`` of the flattened shape are hashed, ``key.shape[:-1] +
+    (hi - lo,)``."""
     size = math.prod(shape)
     if size >= 2 ** 32:
         raise ValueError("draws of 2**32 or more elements are not supported")
     batch = key.shape[:-1]
     k0, k1 = _words(key.reshape(-1, 2))
-    counts = torch.arange(size, dtype=torch.int64, device=key.device)
+    whole = hi is None
+    hi = size if whole else hi
+    counts = torch.arange(lo, hi, dtype=torch.int64, device=key.device)
     b0, b1 = threefry2x32(k0, k1, torch.zeros_like(counts), counts[None])
-    return b0.reshape(*batch, *shape), b1.reshape(*batch, *shape)
+    out = shape if whole else (hi - lo,)
+    return b0.reshape((*batch, *out)), b1.reshape((*batch, *out))
 
 
 def split(key, num: int = 2) -> torch.Tensor:
@@ -100,14 +105,34 @@ def random_bits(key, shape) -> torch.Tensor:
     return b0 ^ b1
 
 
+# counters hashed at once per key by :func:`uniform`: a larger draw goes in
+# slices of the counter range, which keeps its int64 temporaries (about
+# 8 bytes x keys x DRAW_SLICE each) bounded; element i hashes counter i, so
+# the slices give the same bits as one draw
+DRAW_SLICE = 1 << 24
+
+
 def uniform(key, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
     """float32 uniform on ``[minval, maxval)``: the top 23 bits become the
     mantissa of a float in ``[1, 2)``, shifted and scaled in float32."""
-    bits = random_bits(key, shape)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = fbits.view(torch.float32) - 1.0
+    shape = tuple(shape)
+    size = math.prod(shape)
+    batch = key.shape[:-1]
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    if size <= DRAW_SLICE:
+        return _uniform_bits(random_bits(key, shape), lo, hi)
+    out = torch.empty((*batch, size), dtype=torch.float32, device=key.device)
+    for start in range(0, size, DRAW_SLICE):
+        stop = min(start + DRAW_SLICE, size)
+        b0, b1 = _hash_counts(key, shape, start, stop)
+        out[..., start:stop] = _uniform_bits(b0 ^ b1, lo, hi)
+    return out.reshape(*batch, *shape)
+
+
+def _uniform_bits(bits, lo, hi):
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = fbits.view(torch.float32) - 1.0
     # the reference's compiler fuses ``floats * span + lo`` into one
     # multiply-add rounded once; float64 holds the float32 product exactly
     # and, for bounds of similar magnitude (every generator's), the sum

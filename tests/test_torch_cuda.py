@@ -659,3 +659,95 @@ def test_service_on_the_card_matches_the_cpu(cuda_device, tmp_path):
                     c.report[strat]["predicted_m_max"]
     assert out[str(cuda_device)][-1].escalation["measured_m_max"] == \
         out["cpu"][-1].escalation["measured_m_max"]
+
+
+# K3/K4 as the gossip step gives them: the R replicas of one leaf as rows;
+# gemma3-1b's tied embedding at R = 2, and an odd width
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(2, 262144 * 1152), (3, 1000003)])
+def test_quantize_at_gossip_shapes_match_plain(rows, d, cuda_device):
+    """K3 and K4 equal their plain versions bit for bit at widths of 10^8
+    elements a row (the grid-stride loop's int64 indexing), one launch
+    each."""
+    from repro_torch import random as R
+    keys = torch.stack([R.PRNGKey(11 + i, device=cuda_device)
+                        for i in range(rows)])
+    x = (R.uniform(keys, (d,), -0.2, 0.2)
+         * torch.arange(1, rows + 1, device=cuda_device)[:, None])
+    u = R.uniform(R.fold_in(keys, 1), (d,))
+    scale = compression.row_scales(x, 8)
+    kernels.reset_launch_counts()
+    q = kq.quantize_rows(x, u, scale, 8)
+    deq = kq.dequantize_rows(q, scale)
+    assert kernels.launch_counts()["quantize_rows"] == 1
+    assert kernels.launch_counts()["dequantize_rows"] == 1
+    qp = kq.quantize_rows_plain(x, u, scale, 8)
+    assert torch.equal(q, qp)
+    del x, u, qp
+    assert torch.equal(deq, kq.dequantize_rows_plain(q, scale))
+
+
+def _reduced_gemma3_on(dev):
+    """Reduced gemma3-1b with the same float32 weights on the CPU and on
+    ``dev``."""
+    from repro_torch import interop
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    cfg = get_arch("gemma3-1b").reduced()
+    lm = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    tree = interop.lm_tree(lm)
+    return cfg, lm, interop.lm_params(cfg, tree, dev)
+
+
+@pytest.mark.cuda
+def test_sync_train_steps_on_the_card_match_the_cpu(cuda_device):
+    """Three sync AdamW steps at reduced gemma3-1b (float32, TF32 off):
+    the card's losses within 1e-5 of the CPU's."""
+    from repro_torch.launch.train import train_loop
+    cfg, cpu_lm, gpu_lm = _reduced_gemma3_on(cuda_device)
+    kw = dict(steps=3, batch_size=4, seq_len=64, lr=2e-3, log_every=1000)
+    _, want, _ = train_loop(cfg, params=cpu_lm, device="cpu", **kw)
+    _, got, _ = train_loop(cfg, params=gpu_lm, device=cuda_device, **kw)
+    assert gpu_lm.embed["table"].device.type == "cuda"
+    torch.testing.assert_close(torch.tensor(got), torch.tensor(want),
+                               rtol=1e-5, atol=0)
+    assert got[-1] < got[0]
+
+
+@pytest.mark.cuda
+def test_gossip_step_on_the_card_matches_the_cpu(cuda_device):
+    """One ECD-PSGD gossip step at R = 2: C(.) through K3/K4 on the card
+    (one launch each per leaf and compression) against the plain versions
+    on the CPU.  The first compression sees equal inputs and draws the
+    same noise, so the new parameters agree within 1e-5 of each leaf's
+    largest magnitude; y = C(z) may sit one quantum off on at most 0.1 %
+    of elements where z's last bits differ."""
+    from repro_torch import tree as T
+    from repro_torch.train import steps as S
+    cfg, cpu_lm, gpu_lm = _reduced_gemma3_on(cuda_device)
+    g = torch.Generator().manual_seed(4)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 32), generator=g,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    step = S.make_gossip_step(cfg, replicas=2, lr=2e-3)
+    want, _ = step(S.init_gossip_state(cfg, 2, params=cpu_lm), batch)
+    kernels.reset_launch_counts()
+    got, metrics = step(S.init_gossip_state(cfg, 2, params=gpu_lm),
+                        {k: v.to(cuda_device) for k, v in batch.items()})
+    n_leaves = len(T.flatten(want["y"])[0])
+    counts = kernels.launch_counts()
+    assert counts["quantize_rows"] == counts["dequantize_rows"] == 2 * n_leaves
+    assert counts["ecd_compress_rows"] == 0
+    assert bool(torch.isfinite(metrics["loss"]))
+    off = total = 0
+    for (path, x), (_, xw), (_, y), (_, yw) in zip(
+            T.flatten_with_path(got["params"]),
+            T.flatten_with_path(want["params"]),
+            T.flatten_with_path(got["y"]), T.flatten_with_path(want["y"])):
+        x, y = x.cpu(), y.cpu()
+        assert (x - xw).abs().max() <= 1e-5 * xw.abs().max(), path
+        quantum = xw.reshape(2, -1).abs().amax(dim=1) / 127.0
+        diff = (y - yw).abs().reshape(2, -1)
+        assert bool((diff <= quantum[:, None] * (1 + 1e-5)).all()), path
+        off += int((diff > quantum[:, None] * 1e-3).sum())
+        total += diff.numel()
+    assert off <= 1e-3 * total, (off, total)
