@@ -44,7 +44,8 @@
    1e-6 relative, curves to 1e-5, every value finite; ECD-PSGD, whose
    quantizer turns an ulp into a quantum, within the reference's own
    2e-2 envelope for execution-order differences.
-4b. Phase specs: the eight other specs of the registry (``NEW_SPECS``) at
+4b. Phase specs: the five specs of the registry beyond upper_bound that
+   phase report does not run (``NEW_SPECS`` less ``REPORT_SPECS``) at
    their published sizes on the GPU, no cache, each with the counters set
    to 0 just before and read just after: every job must finish ``ok`` and
    the launches of K1, K2, the fused tail and K3/K4 must equal the counts
@@ -55,7 +56,31 @@
    relative (n, d, diversity and diversity_ratio exact), every seed's
    curves to 1e-5 (faulted jobs included; ECD-PSGD to 2e-2), statuses,
    measured and predicted m_max equal.
-4d. Phase service: the advisor service (`repro_torch.service`) on the
+4d. Phase report: ``python -m repro_torch.analysis.report`` (its
+   ``main``) at the published sizes with its default 8 seeds, ``--force``,
+   into a temporary cache, the counters set to 0 just before and read just
+   after: K1, K2 and the fused tail must launch `expected_launches` summed
+   over the four specs, K3/K4 never, every job ``ok``; each spec's wall
+   time (synchronised), and section 6 must attribute at least 95 % of the
+   last computed sweep.
+4e. Phase report-vs-cpu: the report at ``--quick --iters 60 --n 256
+   --seeds 2`` on the card and on the CPU: every measured, fitted and
+   predicted m_max and every bootstrap CI equal, every seed's curves
+   within 1e-5 (ECD-PSGD 2e-2).
+4f. Phase trace: ``python -m repro_torch.experiments.run --spec
+   upper_bound --trace F --metrics --serve 0`` in a child process on the
+   card, forced into a fresh cache; one ``/flight`` poll through
+   ``telemetry.watch`` while it runs; ``python -m repro_torch.telemetry
+   --summarize F --min-coverage 0.95`` must exit 0, every ``bucket`` span
+   must hold an ``execute`` span, and the stored artifact must equal phase
+   3's untraced one byte for byte.
+4g. Phase mesh: upper_bound's datasets at 120 iterations and 2 seeds on
+   ``from_devices([cuda:0] * 4)`` against ``mesh=None`` (curves within
+   1e-5, ECD-PSGD 2e-2, every m_max equal) and on a one-device mesh (bit
+   for bit); racing Hogwild! at m = 4 on 4 shards, ``sync_every=1``,
+   within 1e-5 of the engine's staleness oracle with the predicted psum
+   rounds, ``sync_every=4`` beside it.
+4h. Phase service: the advisor service (`repro_torch.service`) on the
    card behind its HTTP server on an ephemeral port of this host, with a
    fresh cache.  An analytic batch of eight probes (six higgs_like
    2000x28, one realsim_like 2000x400 at density 0.05 past the 512x64
@@ -115,7 +140,8 @@
    on the card and the CPU: 5 sync and 5 stale steps (losses within 1e-4
    relative), 3 gossip steps at R = 4 (within 1e-3).
 10. Prints one JSON line with each kernel's numbers (the sweep kernels'
-   launches also per spec and per service path, K3/K4's per path, their
+   launches also per spec, per report spec and in all for the report,
+   and per service path, K3/K4's per path, their
    record at the gossip's largest leaf), then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -225,11 +251,15 @@ SPEC_ROW_L0_TIMED = [(1536, 48), (800, 400)]
 # columns, flattened) and the Hogwild! predictor over realsim_like's
 # whole 2000 x 400 (its 512 x 400 rows are timed above)
 SERVICE_ROW_L0_TIMED = [(4096, 64), (2000, 400)]
-# the registry's specs beyond upper_bound, run by phases specs and
-# specs-vs-cpu
+# the registry's specs beyond upper_bound, held against the CPU by phase
+# specs-vs-cpu; phase specs runs those the report does not
 NEW_SPECS = ("variance_sparsity", "scalability_study", "diversity", "ls",
              "problem_generality", "character_surface", "critical_params",
              "fault_tolerance")
+# the paper report's four specs (analysis.report.REPORT_SPECS), which phase
+# report runs at their published sizes with 8 seeds
+REPORT_SPECS = ("upper_bound", "character_surface", "critical_params",
+                "fault_tolerance")
 
 
 def l0_input(gen, shape):
@@ -987,8 +1017,8 @@ def expected_launches(spec):
 
 
 def run_specs():
-    """Phase specs: each spec of ``NEW_SPECS`` on the card at its published
-    size, no cache, with the launch counters set to 0 just before and read
+    """Phase specs: each spec of ``NEW_SPECS`` that phase report does not
+    run, on the card at its published size, no cache, with the launch counters set to 0 just before and read
     just after; every job must finish ``ok`` and every count must equal
     :func:`expected_launches`.  Prints one line per spec and returns the
     per-spec launch counts."""
@@ -996,7 +1026,7 @@ def run_specs():
     from repro_torch import kernels
     from repro_torch.experiments import registry, runner
     launches_by_spec = {}
-    for name in NEW_SPECS:
+    for name in (s for s in NEW_SPECS if s not in REPORT_SPECS):
         spec = registry.get_spec(name)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
@@ -1085,6 +1115,334 @@ def check_specs_against_cpu(iters: int = 60):
         report[name] = {"jobs": len(cpu["jobs"]), "max_char_rel": char_rel,
                         "max_curve_diff": diffs}
     return report
+
+
+def _recording_sweeps(records):
+    """A stand-in for ``runner.run_sweep`` that records, per spec, the wall
+    time (synchronised at both ends), the launches made and the result,
+    reading the counters without resetting them."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.experiments import runner
+    real = runner.run_sweep
+
+    def run_sweep(spec, **kw):
+        dev = torch.device(kw.get("device", "cuda"))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        result = real(spec, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        after = kernels.launch_counts()
+        records[spec.name] = {
+            "wall_s": time.perf_counter() - t0, "result": result,
+            "launches": {k: after[k] - before[k] for k in after}}
+        return result
+    return real, run_sweep
+
+
+def _run_report(argv):
+    """``analysis.report.main(argv)`` with every sweep recorded; returns
+    the per-spec records."""
+    from repro_torch.analysis import report
+    from repro_torch.experiments import runner
+    records = {}
+    real, recording = _recording_sweeps(records)
+    runner.run_sweep = recording
+    try:
+        if report.main(argv) != 0:
+            raise AssertionError(f"report.main({argv}) failed")
+    finally:
+        runner.run_sweep = real
+    return records
+
+
+def run_report(root):
+    """Phase report: ``python -m repro_torch.analysis.report`` at the
+    published sizes with its default 8 seeds, ``--force``, into a fresh
+    cache, with the launch counters set to 0 just before and read just
+    after: K1, K2 and the fused tail must launch exactly
+    `expected_launches` summed over the four specs, K3/K4 never; every
+    job ``ok``; section 6 must attribute at least 95 % of the last
+    computed sweep.  Then the grid of critical_params' first job, 100
+    iterations at 8 seeds with its dataset made beforehand, runs under
+    ``torch.profiler``: is the report's simulation host-paced?"""
+    import re
+    import torch
+    from repro_torch import kernels
+    from repro_torch.analysis import report
+    from repro_torch.experiments import registry
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        out = os.path.join(tmp, "report.md")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        records = _run_report(["--force", "--cache-dir",
+                               os.path.join(tmp, "cache"), "--out", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        with open(out) as f:
+            md = f.read()
+    seeds = report.DEFAULT_SEEDS["full"]
+    want = {k: 0 for k in SWEEP_KERNELS + FUSED_AWAY}
+    per_spec = {}
+    for name in REPORT_SPECS:
+        spec = registry.get_spec(name, seeds=seeds)
+        expected = expected_launches(spec)
+        for k, v in expected.items():
+            want[k] += v
+        rec = records[name]
+        got = {k: rec["launches"][k] for k in expected}
+        if got != expected:
+            raise AssertionError(f"report {name}: launches {got}, "
+                                 f"expected {expected}")
+        statuses = {key: jr["status"]
+                    for key, jr in rec["result"]["jobs"].items()}
+        bad = [k for k, st in statuses.items() if st != "ok"]
+        if bad:
+            raise AssertionError(f"report {name}: jobs not ok: {bad}")
+        per_spec[name] = {"wall_s": rec["wall_s"], "jobs": len(statuses),
+                          "seeds": spec.n_seeds, "iters": spec.iters,
+                          "launches": got}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"report: launches {got}, expected {want}")
+    m = re.search(r"wall-clock, (\d+)% attributed", md)
+    if m is None or int(m.group(1)) < 95:
+        raise AssertionError(f"report section 6 attributes "
+                             f"{m.group(1) if m else 'nothing'} %")
+    section6 = md[md.index("## 6."):].strip().splitlines()
+    from repro_torch.experiments import engine
+    from repro_torch.experiments import spec as spec_mod
+    spec = registry.get_spec("critical_params", seeds=seeds)
+    job = spec.jobs[0]
+    ds = spec.datasets[job.dataset]
+    tr, te = spec_mod.split_dataset(ds, spec_mod.build_dataset(ds, "cuda"),
+                                    spec.split_seed)
+    prof = _profile(lambda: engine.sweep(
+        job.algorithm, tr, te, spec.ms, iters=100, eval_every=10,
+        problem=job.problem, n_seeds=spec.n_seeds, **job.kwargs), top=5)
+    if isinstance(prof, dict):
+        prof = {"job": job.key, "iters": 100, **prof}
+    return {"wall_s": wall, "launches": got, "per_spec": per_spec,
+            "profile_critical_params_job": prof,
+            "section6_coverage_pct": int(m.group(1)),
+            "section6": [ln for ln in section6 if ln.startswith("|")]}
+
+
+def _mmax_readouts(result):
+    """Every m_max and CI the report renders for a result: per job the
+    bootstrap (point, lo, hi), the fitted law's (point, lo, hi) and the
+    prediction."""
+    from repro_torch.analysis import fit, stats
+    from repro_torch.experiments import runner
+    eps = result["spec"].get("epsilon") or {}
+    out = {}
+    for key, jr in result["jobs"].items():
+        if not runner.job_is_healthy(jr):
+            out[key] = jr["status"]
+            continue
+        boot = stats.mmax_bootstrap(jr, probe_m=eps.get("probe_m"),
+                                    frac=eps.get("frac"))
+        law = fit.fit_job(jr, probe_m=eps.get("probe_m"),
+                          frac=eps.get("frac"))
+        out[key] = [boot["m_max"], boot["lo"], boot["hi"],
+                    law["fitted_m_max"], law["fitted_m_max_lo"],
+                    law["fitted_m_max_hi"], jr.get("measured_m_max"),
+                    (jr.get("predicted") or {}).get("predicted_m_max")]
+    return out
+
+
+def check_report_against_cpu(root):
+    """Phase report-vs-cpu: the report at ``--quick --iters 60 --n 256
+    --seeds 2`` on the card and on the CPU, each into a fresh cache: every
+    measured, fitted and predicted m_max and every CI equal; every seed's
+    curves within 1e-5 (ECD-PSGD 2e-2)."""
+    args = ["--quick", "--iters", "60", "--n", "256", "--seeds", "2"]
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        for dev in ("cuda", "cpu"):
+            runs[dev] = _run_report(args + [
+                "--device", dev, "--force", "--cache-dir",
+                os.path.join(tmp, dev), "--out",
+                os.path.join(tmp, f"{dev}.md")])
+    report = {}
+    for name in REPORT_SPECS:
+        gpu, cpu = (runs[d][name]["result"] for d in ("cuda", "cpu"))
+        readouts = [_mmax_readouts(r) for r in (gpu, cpu)]
+        if readouts[0] != readouts[1]:
+            raise AssertionError(f"report-vs-cpu {name}: m_max / CI gpu "
+                                 f"{readouts[0]} cpu {readouts[1]}")
+        diffs = {"ecd_psgd": 0.0, "other": 0.0}
+        for key, jc in cpu["jobs"].items():
+            jg = gpu["jobs"][key]
+            kind = "ecd_psgd" if jc["algorithm"] == "ecd_psgd" else "other"
+            diff = max(_max_diff(a, b) for a, b in zip(
+                jg["losses_seeds"], jc["losses_seeds"]))
+            if diff > (2e-2 if kind == "ecd_psgd" else 1e-5):
+                raise AssertionError(f"report-vs-cpu {name} {key}: curves "
+                                     f"differ by {diff}")
+            diffs[kind] = max(diffs[kind], diff)
+        report[name] = {"jobs": len(cpu["jobs"]), "max_curve_diff": diffs,
+                        "gpu_wall_s": runs["cuda"][name]["wall_s"],
+                        "cpu_wall_s": runs["cpu"][name]["wall_s"]}
+    return report
+
+
+def run_trace(root, golden):
+    """Phase trace: ``python -m repro_torch.experiments.run --spec
+    upper_bound --trace F --metrics --serve 0 -v`` on the card in a child
+    process, forced into a fresh cache so that it stores an artifact; one
+    ``/flight`` poll through ``telemetry.watch(..., max_polls=1)`` once
+    its first job has started, which must show the sweep's events; then ``python -m repro_torch.telemetry --summarize F
+    --min-coverage 0.95`` must exit 0, every ``bucket`` span must hold an
+    ``execute`` span, and the artifact must equal ``golden``, phase
+    upper_bound's untraced artifact, byte for byte."""
+    import io
+    from repro_torch.telemetry import __main__ as telemetry_cli
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        cache = os.path.join(tmp, "cache")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.experiments.run", "--spec",
+             "upper_bound", "--cache-dir", cache, "--force", "--trace", path,
+             "--metrics", "--serve", "0", "-v"], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            head = []
+            url = None
+            # poll once the first job runs (-v prints its start), so that
+            # the poll sees the sweep's progress events
+            for line in proc.stdout:
+                head.append(line.rstrip())
+                if line.startswith("observability plane at "):
+                    url = line.split()[3]
+                elif url is not None and line.startswith("[upper_bound]"):
+                    break
+            if url is None:
+                raise AssertionError(f"no observability plane: {head}")
+            polled = io.StringIO()
+            rc_watch = telemetry_cli.watch(url, interval=0.1, max_polls=1,
+                                           out=polled)
+            rest = proc.communicate(timeout=900)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0 or rc_watch != 0:
+            raise AssertionError(f"traced run rc={proc.returncode} watch "
+                                 f"rc={rc_watch}: {rest[-2000:]}")
+        lines = head + rest.splitlines()
+        summary = subprocess.run(
+            [sys.executable, "-m", "repro_torch.telemetry", "--summarize",
+             path, "--min-coverage", "0.95"], cwd=root, env=env,
+            capture_output=True, text=True, timeout=300)
+        if summary.returncode != 0:
+            raise AssertionError(f"--summarize failed: {summary.stdout} "
+                                 f"{summary.stderr}")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        artifacts = [n for n in os.listdir(cache) if n.endswith(".json")]
+        with open(os.path.join(cache, artifacts[0]), "rb") as f:
+            stored = f.read()
+    flight = polled.getvalue()
+    if "sweep_started" not in flight or "job_started" not in flight:
+        raise AssertionError(f"the /flight poll missed the sweep: {flight}")
+    if len(artifacts) != 1 or stored != golden:
+        raise AssertionError("the traced run's artifact differs from the "
+                             "untraced one's")
+    buckets = [e for e in events if e["name"] == "bucket"]
+    executes = [e for e in events if e["name"] == "execute"]
+    orphans = [b for b in buckets if not any(
+        x["tid"] == b["tid"] and x["args"]["depth"] == b["args"]["depth"] + 1
+        and x["ts"] >= b["ts"] - 1e-3
+        and x["ts"] + x["dur"] <= b["ts"] + b["dur"] + 1e-3
+        for x in executes)]
+    if not buckets or orphans:
+        raise AssertionError(f"{len(orphans)} of {len(buckets)} bucket "
+                             f"spans have no execute child")
+    metric_lines = [ln for ln in lines if ln.startswith(
+        ("repro_engine_", "repro_sweep_computes", "repro_cache_stores"))]
+    return {"wall_s": wall, "spans": len(events), "buckets": len(buckets),
+            "flight_lines": len(flight.splitlines()),
+            "summary": summary.stdout.strip().splitlines(),
+            "metrics": metric_lines, "artifact_bytes": len(stored)}
+
+
+def run_mesh():
+    """Phase mesh: upper_bound's datasets at 120 iterations and 2 seeds
+    sharded over ``from_devices([cuda:0] * 4)`` against ``mesh=None``:
+    every curve within 1e-5 (ECD-PSGD 2e-2), every m_max equal; a
+    one-device mesh bit-exact.  Then racing Hogwild! at m = 4 on 4 shards,
+    ``sync_every=1``, on the spec's Hogwild! dataset, within 1e-5 of the
+    engine's staleness oracle with the predicted ``psum_rounds``;
+    ``sync_every=4`` beside it."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.distributed import from_devices, run_hogwild_sharded
+    from repro_torch.experiments import engine, registry, runner
+    from repro_torch.experiments import spec as spec_mod
+    dev = torch.device("cuda", 0)
+    spec = registry.get_spec("upper_bound", iters=120, seeds=2)
+    walls, runs = {}, {}
+    for name, mesh in (("none", None), ("shards4", from_devices([dev] * 4)),
+                       ("one", from_devices([dev]))):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[name] = runner.run_sweep(spec, device=dev, use_cache=False,
+                                      mesh=mesh)
+        torch.cuda.synchronize()
+        walls[name] = {"wall_s": time.perf_counter() - t0,
+                       "launches": {k: v for k, v in
+                                    kernels.launch_counts().items() if v}}
+    base = runs["none"]
+    if not runs["shards4"]["execution"]["sharded"]:
+        raise AssertionError("the 4-shard run was not sharded")
+    diffs = {}
+    for key, jb in base["jobs"].items():
+        js, jo = runs["shards4"]["jobs"][key], runs["one"]["jobs"][key]
+        tol = 2e-2 if jb["algorithm"] == "ecd_psgd" else 1e-5
+        diff = max(_max_diff(a, b) for a, b in zip(js["losses_seeds"],
+                                                    jb["losses_seeds"]))
+        if diff > tol:
+            raise AssertionError(f"mesh {key}: 4 shards differ by {diff}")
+        if js.get("measured_m_max") != jb.get("measured_m_max") or \
+                js.get("predicted") != jb.get("predicted"):
+            raise AssertionError(f"mesh {key}: m_max changed")
+        if jo["losses_seeds"] != jb["losses_seeds"]:
+            raise AssertionError(f"mesh {key}: one device is not bit-exact")
+        diffs[key] = diff
+    job = next(j for j in spec.jobs if j.algorithm == "hogwild")
+    ds = spec.datasets[job.dataset]
+    tr, te = spec_mod.split_dataset(ds, spec_mod.build_dataset(ds, dev),
+                                    spec.split_seed)
+    kw = dict(iters=1200, eval_every=100, gamma=job.kwargs["gamma"])
+    oracle = engine.sweep("hogwild", tr, te, [4], **kw)["losses"][0]
+    race = {}
+    for sync_every in (1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run_hogwild_sharded(tr, te, m=4, mesh=from_devices([dev] * 4),
+                                sync_every=sync_every, **kw)
+        wall = time.perf_counter() - t0
+        predicted = (kw["iters"] // 4) // sync_every + kw["iters"] // 100
+        if r["psum_rounds"] != predicted:
+            raise AssertionError(f"psum_rounds {r['psum_rounds']} != "
+                                 f"{predicted}")
+        diff = max(abs(a - b) for a, b in zip(r["losses"], oracle))
+        race[f"sync_every={sync_every}"] = {
+            "wall_s": wall, "psum_rounds": r["psum_rounds"],
+            "max_diff_vs_oracle": diff, "final_loss": r["losses"][-1]}
+    if race["sync_every=1"]["max_diff_vs_oracle"] > 1e-5:
+        raise AssertionError(f"race vs oracle {race}")
+    return {"runs": walls, "max_curve_diff": diffs, "race": race}
 
 
 # phase service: the analytic batch (six higgs_like sets, one realsim_like
@@ -1814,6 +2172,9 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
         stored = os.path.exists(result["cache"]["path"])
+        if stored:
+            with open(result["cache"]["path"], "rb") as f:
+                golden = f.read()
     ecd_key = next(j.key for j in spec.jobs if j.algorithm == "ecd_psgd")
     print(f"phase upper_bound: iters={spec.iters} wall_s={wall:.3f} "
           f"ecd_psgd_job_s={result['timings'][ecd_key]:.3f} "
@@ -1864,6 +2225,42 @@ def main() -> int:
     spec_agreement = check_specs_against_cpu()
     print(f"phase specs-vs-cpu: ok in {time.perf_counter() - t0:.2f}s "
           f"{json.dumps(spec_agreement)}", flush=True)
+
+    t0 = time.perf_counter()
+    report_run = run_report(root)
+    print(f"phase report: ok in {time.perf_counter() - t0:.2f}s [{card}] "
+          f"wall_s={report_run['wall_s']:.3f} launches="
+          f"{json.dumps(report_run['launches'])} section 6 coverage "
+          f"{report_run['section6_coverage_pct']} %", flush=True)
+    for name, rec in report_run["per_spec"].items():
+        print(f"  report {name} {json.dumps(rec)}", flush=True)
+    for line in report_run["section6"]:
+        print(f"  report section 6 {line}", flush=True)
+    print(f"  report profile "
+          f"{json.dumps(report_run['profile_critical_params_job'])}",
+          flush=True)
+    spec_launches["report"] = report_run["launches"]
+    for name, rec in report_run["per_spec"].items():
+        spec_launches[f"report:{name}"] = rec["launches"]
+
+    t0 = time.perf_counter()
+    report_agreement = check_report_against_cpu(root)
+    print(f"phase report-vs-cpu: ok in {time.perf_counter() - t0:.2f}s "
+          f"{json.dumps(report_agreement)}", flush=True)
+
+    t0 = time.perf_counter()
+    traced = run_trace(root, golden)
+    print(f"phase trace: ok in {time.perf_counter() - t0:.2f}s [{card}] "
+          f"{json.dumps({k: v for k, v in traced.items() if k not in ('summary', 'metrics')})}",
+          flush=True)
+    for line in traced["summary"]:
+        print(f"  trace summary {line}", flush=True)
+    print(f"  trace metrics {json.dumps(traced['metrics'])}", flush=True)
+
+    t0 = time.perf_counter()
+    mesh = run_mesh()
+    print(f"phase mesh: ok in {time.perf_counter() - t0:.2f}s [{card}] "
+          f"{json.dumps(mesh)}", flush=True)
 
     t0 = time.perf_counter()
     allocated = [torch.cuda.memory_allocated()]

@@ -23,10 +23,20 @@ The contract kept from the reference:
 ``per_m=True`` runs each m alone (padded to ``m_top``), the sequential
 reference the equivalence tests compare with (the reference's
 ``use_vmap=False``).
+
+``mesh=`` shards each bucket's (members x seeds) elements over a device
+mesh through `repro_torch.distributed.partition`; a one-device mesh (and
+``per_m``) takes the unsharded path bit for bit.
+
+Telemetry keeps the reference's names: a ``grid`` span around the groups,
+a ``bucket`` span per bucket (``grid_member`` per member under
+``per_m``) through `repro_torch.telemetry.instrument`, the pad-waste gauge
+and the flight recorder's ``grid`` event.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -34,10 +44,29 @@ import torch
 from repro_torch import random as R
 from repro_torch.core import problems as problems_mod
 from repro_torch.core.algorithms import base as alg_base
+from repro_torch.distributed import mesh as dist_mesh
+from repro_torch.distributed import partition as dist_partition
+from repro_torch.telemetry import instrument, metrics, recorder, trace
 
 #: Pad-waste bound for `_buckets`: within a bucket, the padded worker axis
 #: is at most this multiple of the smallest member.
 MAX_PAD_RATIO = 2.0
+
+#: Fraction of the last grid's padded worker-axis work that was padding:
+#: 1 - sum(m) / sum(m_pad per member).
+_PAD_WASTE = metrics.gauge(
+    "repro_engine_pad_waste_ratio",
+    help="pad-waste fraction of the last grid: 1 - sum(m)/sum(m_pad)")
+
+
+def _note_pad_waste(assignments) -> None:
+    """Record the grid's pad waste from ``(m, m_pad)`` member pairs."""
+    total = sum(pad for _, pad in assignments)
+    if total:
+        waste = 1.0 - sum(m for m, _ in assignments) / total
+        _PAD_WASTE.set(waste)
+        recorder.publish("grid", members=len(assignments),
+                         pad_waste=round(waste, 4))
 
 
 def _losses_dict(algorithm: str, ms, losses, iters: int, eval_every: int,
@@ -80,17 +109,26 @@ def _buckets(ms: Sequence[int],
 
 
 def prepare_bucket(alg, prob, train, members: Sequence[int], m_pad: int,
-                   draws_by_seed):
+                   draws_by_seed, seeds: Optional[Sequence[int]] = None):
     """The batch of ``members`` x seeds at pad width ``m_pad``: returns
     ``(ctx, state, per_elem)``, where ``per_elem`` holds the draws with
     iteration leading, ``(iters, B, ...)``, so that iteration t's batch is
-    ``map_draws(lambda a: a[t], per_elem)``."""
+    ``map_draws(lambda a: a[t], per_elem)``.
+
+    With ``seeds`` the elements are explicit: element b is member
+    ``members[b]`` under seed ``seeds[b]`` (a shard's slice of a bucket);
+    without, element b is member ``members[b // n_seeds]`` under seed
+    ``b % n_seeds``.  Either way an element draws by its seed, never by
+    its position in the batch."""
     dev = train.X.device
     n_seeds = len(draws_by_seed)
-    # element b = (member b // n_seeds, seed b % n_seeds)
-    m = torch.tensor(members, dtype=torch.int64,
-                     device=dev).repeat_interleave(n_seeds)
-    seed_of = torch.arange(n_seeds, device=dev).repeat(len(members))
+    if seeds is None:
+        m = torch.tensor(members, dtype=torch.int64,
+                         device=dev).repeat_interleave(n_seeds)
+        seed_of = torch.arange(n_seeds, device=dev).repeat(len(members))
+    else:
+        m = torch.tensor(members, dtype=torch.int64, device=dev)
+        seed_of = torch.tensor(seeds, dtype=torch.int64, device=dev)
     subs = [alg.slice_draws(d, m_pad) for d in draws_by_seed]
     if isinstance(subs[0], dict):
         stacked = {k: torch.stack([s[k] for s in subs]) for k in subs[0]}
@@ -104,11 +142,13 @@ def prepare_bucket(alg, prob, train, members: Sequence[int], m_pad: int,
 
 
 def _simulate(alg, prob, train, test, members: Sequence[int], m_pad: int,
-              draws_by_seed, iters: int, eval_every: int) -> torch.Tensor:
-    """Run ``members`` x seeds as one batch at pad width ``m_pad``;
-    returns losses (len(members), n_seeds, n_evals)."""
+              draws_by_seed, iters: int, eval_every: int,
+              seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Run the elements `prepare_bucket` makes of ``members`` (and
+    ``seeds``) as one batch at pad width ``m_pad``; returns their losses
+    ``(B, n_evals)``."""
     ctx, state, per_elem = prepare_bucket(alg, prob, train, members, m_pad,
-                                          draws_by_seed)
+                                          draws_by_seed, seeds)
     B = ctx.m.shape[0]
     n_evals = iters // eval_every
     losses = torch.empty(B, n_evals, device=train.X.device)
@@ -118,21 +158,33 @@ def _simulate(alg, prob, train, test, members: Sequence[int], m_pad: int,
                              alg_base.map_draws(lambda a: a[t], per_elem), t)
         losses[:, e] = prob.test_loss(alg.readout(ctx, state), test.X,
                                       test.y)
-    return losses.reshape(len(members), len(draws_by_seed), n_evals)
+    return losses
+
+
+def _on(data, device):
+    """``data`` (a `Dataset`) with its tensors on ``device``."""
+    if data.X.device == device:
+        return data
+    return dataclasses.replace(data, X=data.X.to(device),
+                               y=data.y.to(device))
 
 
 def sweep(algorithm: Union[str, alg_base.Algorithm], train, test,
           ms: Sequence[int], *, iters: int, eval_every: int,
           problem="logistic", lam: Optional[float] = None, key=None,
           per_m: bool = False, bucketed: Optional[bool] = None,
-          n_seeds: int = 1, **alg_kwargs) -> Dict:
+          n_seeds: int = 1, mesh: "dist_mesh.MeshLike" = None,
+          **alg_kwargs) -> Dict:
     """Run ``algorithm`` on ``problem`` over the worker grid ``ms``, on the
     device the training data lives on.
 
     ``algorithm`` is a registry name (instantiated with ``alg_kwargs``) or
     an `Algorithm` instance; ``problem`` a registry name / class /
     instance.  ``bucketed=None`` defers to the algorithm's policy;
-    ``n_seeds > 1`` replicates every member over independent draws."""
+    ``n_seeds > 1`` replicates every member over independent draws.
+    ``mesh`` (None, ``"auto"``, an int or a `DeviceMesh`) shards each
+    bucket's elements over a device mesh; results are mesh-invariant and
+    a one-device mesh is bit-exact with ``mesh=None``."""
     if isinstance(algorithm, alg_base.Algorithm):
         if alg_kwargs:
             raise TypeError("pass algorithm kwargs either via the instance "
@@ -163,11 +215,44 @@ def sweep(algorithm: Union[str, alg_base.Algorithm], train, test,
         groups = _buckets(ms)
     else:
         groups = [(tuple(range(len(ms))), m_top)]
-    rows = [None] * len(ms)
-    for pos, m_pad in groups:
-        out = _simulate(alg, prob, train, test, [ms[i] for i in pos], m_pad,
-                        draws_by_seed, iters, eval_every)
-        for k, i in enumerate(pos):
-            rows[i] = out[k]
-    return _losses_dict(alg.name, ms, torch.stack(rows), iters, eval_every,
+    _note_pad_waste([(ms[i], m_pad) for pos, m_pad in groups for i in pos])
+    dmesh = dist_mesh.resolve(mesh, device=dev)
+
+    def run(pos, m_pad):
+        return _simulate(alg, prob, train, test, [ms[i] for i in pos],
+                         m_pad, draws_by_seed, iters,
+                         eval_every).reshape(len(pos), n_seeds, -1)
+
+    with trace.span("grid", algorithm=alg.name, problem=prob.name,
+                    members=len(ms), n_seeds=n_seeds):
+        if dmesh is not None and dmesh.n_devices > 1 and not per_m:
+            placed = {}
+
+            def run_elements(m_list, s_list, m_pad, device):
+                if device not in placed:
+                    placed[device] = (
+                        _on(train, device), _on(test, device),
+                        [alg_base.map_draws(lambda a: a.to(device), dr)
+                         for dr in draws_by_seed])
+                tr, te, draws = placed[device]
+                return _simulate(alg, prob, tr, te, m_list, m_pad, draws,
+                                 iters, eval_every, seeds=s_list)
+
+            losses = dist_partition.run_grid_sharded(
+                run_elements, ms, n_seeds, dmesh, groups).to(dev)
+        else:
+            rows = [None] * len(ms)
+            for pos, m_pad in groups:
+                if per_m:
+                    out = instrument.timed_call(
+                        run, pos, m_pad, span_name="grid_member",
+                        m=ms[pos[0]], m_pad=m_pad)
+                else:
+                    out = instrument.dispatch(
+                        run, pos, m_pad, span_name="bucket", m_pad=m_pad,
+                        members=len(pos))
+                for k, i in enumerate(pos):
+                    rows[i] = out[k]
+            losses = torch.stack(rows)
+    return _losses_dict(alg.name, ms, losses, iters, eval_every,
                         problem=prob.name, n_seeds=n_seeds)

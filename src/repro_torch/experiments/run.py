@@ -17,6 +17,21 @@ is not finite ``"diverged"``).  Repeated runs of an unchanged spec are
 served from the port's artifact cache (``--force`` recomputes,
 ``--no-cache`` bypasses it).  The report ends with the
 measured-vs-predicted m_max comparison.
+
+``--devices`` (default ``auto``: every CUDA device, or the one CPU)
+shards every job's buckets over a device mesh (`repro_torch.distributed`);
+the mesh is printed at startup.  Curves and cache keys are the same on
+any mesh.  ``--seq`` runs each worker count alone (never sharded).
+
+``--trace out.json`` records the run as nested spans (sweep -> job ->
+grid -> bucket -> execute, journal and cache IO) and writes Chrome-trace
+JSON (load it at https://ui.perfetto.dev, or summarize it with
+``python -m repro_torch.telemetry --summarize out.json``).
+``--metrics`` prints the process metrics registry (Prometheus text)
+after the run.  ``--serve PORT`` exposes ``/metrics``, ``/healthz``,
+``/flight`` and ``/trace`` over HTTP while the sweep runs (watch it with
+``python -m repro_torch.telemetry --watch URL``).  All three only
+observe: the artifact bytes are the same with or without them.
 """
 
 from __future__ import annotations
@@ -29,7 +44,10 @@ import sys
 from repro_torch.core import problems as problems_mod
 from repro_torch.core.algorithms import base as alg_base
 from repro_torch.data import synth
+from repro_torch.distributed import get_mesh
 from repro_torch.experiments import registry, runner
+from repro_torch.telemetry import metrics as metrics_mod
+from repro_torch.telemetry import trace
 
 
 def _print_report(result: dict) -> None:
@@ -69,9 +87,12 @@ def _print_report(result: dict) -> None:
         for key, meas, pred in comparisons:
             print(f"  {key:28s} measured={meas:<6d} predicted={pred}")
     cache = result.get("cache", {})
+    exe = result["execution"]
     src = ("cache hit" if cache.get("hit")
            else f"computed in {result.get('elapsed_s', 0.0):.2f}s")
-    print(f"\n[{src} on {result['execution']['device_name']}] "
+    if exe.get("sharded"):
+        src += f" sharded over {exe['devices']} devices"
+    print(f"\n[{src} on {exe['device_name']}] "
           f"artifact: {cache.get('path')}")
 
 
@@ -123,7 +144,24 @@ def main(argv=None) -> int:
                     help="neither read nor write the artifact cache")
     ap.add_argument("--force", action="store_true",
                     help="recompute even on a cache hit")
+    ap.add_argument("--devices", default="auto",
+                    help="device mesh for sharded execution: 'auto' (every "
+                         "device of --device's type, the default) or an "
+                         "int; results and cache keys are mesh-invariant")
+    ap.add_argument("--seq", action="store_true",
+                    help="run each worker count alone instead of the "
+                         "batched buckets (never sharded)")
     ap.add_argument("--json", help="also write the full result to this path")
+    ap.add_argument("--trace", metavar="TRACE_JSON",
+                    help="record the run as spans and write Chrome-trace "
+                         "JSON here (observational only)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the process metrics registry (Prometheus "
+                         "text) after the run")
+    ap.add_argument("--serve", metavar="PORT", type=int, default=None,
+                    help="expose /metrics /healthz /flight /trace over HTTP "
+                         "on this port while the sweep runs (0 = "
+                         "ephemeral; observational only)")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 
@@ -139,14 +177,56 @@ def main(argv=None) -> int:
         spec = dataclasses.replace(spec, jobs=tuple(
             dataclasses.replace(j, problem=args.problem)
             for j in spec.jobs)).validate()
-    result = runner.run_sweep(spec, device=args.device,
-                              use_cache=not args.no_cache, force=args.force,
-                              cache_dir=args.cache_dir, verbose=args.verbose)
+    devices = args.devices
+    if devices != "auto":
+        try:
+            devices = int(devices)
+        except ValueError:
+            ap.error(f"--devices must be an int or 'auto', got {devices!r}")
+    # an invalid request must still serve cached artifacts, so the runner
+    # resolves the mesh only on a miss; this startup report is best-effort
+    try:
+        print(get_mesh(devices, device=args.device).describe())
+    except ValueError as e:
+        print(f"mesh: not resolvable here ({e}); cached artifacts still "
+              f"serve, a fresh compute will fail")
+    # the tracer brackets run_sweep tightly, so the root "sweep" span
+    # covers nearly all of the traced wall time
+    if args.trace:
+        trace.start()
+    server = None
+    if args.serve is not None:
+        # the observability plane only: no advisor behind it, so the probe
+        # endpoints answer 503 (imported here: the plain CLI stays
+        # http-free)
+        from repro_torch.service.http import ServiceServer
+        server = ServiceServer(None, port=args.serve).start()
+        print(f"observability plane at {server.url} (GET /metrics "
+              f"/healthz /flight /trace; watch: python -m "
+              f"repro_torch.telemetry --watch {server.url})", flush=True)
+    try:
+        result = runner.run_sweep(spec, device=args.device,
+                                  use_cache=not args.no_cache,
+                                  force=args.force, cache_dir=args.cache_dir,
+                                  verbose=args.verbose, per_m=args.seq,
+                                  mesh=devices)
+    finally:
+        if server is not None:
+            server.stop()
+        if args.trace:
+            trace.stop()
+            trace.export(args.trace)
+            print(f"wrote trace {args.trace} (summarize: python -m "
+                  f"repro_torch.telemetry --summarize {args.trace})")
     _print_report(result)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(result, f, indent=1, default=float)
         print(f"wrote {args.json}")
+    if args.metrics:
+        print()
+        print(metrics_mod.REGISTRY.render_prometheus(prefix="repro_"),
+              end="")
     return 0
 
 

@@ -29,7 +29,10 @@ no attempt ever moves to another device.
 Results are plain JSON-serializable dicts, stored in the port's
 content-hashed artifact cache; the per-run keys ``cache``,
 ``execution``, ``elapsed_s`` and the per-job wall ``timings`` are
-attached after loading and never persisted.
+attached after loading and never persisted.  ``execution`` names the
+device and the resolved mesh (``devices``, ``sharded``); the mesh is an
+execution resource only, so an artifact is byte-identical whichever mesh
+computed it, and a cache hit never resolves one.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from repro_torch.core import metrics as MX
 from repro_torch.core import scalability as SC
 from repro_torch.core.algorithms import base as alg_base
 from repro_torch.device import resolve_device
+from repro_torch.distributed import mesh as dist_mesh
 from repro_torch.experiments import cache as artifact_cache
 from repro_torch.experiments import engine
 from repro_torch.experiments import spec as spec_mod
@@ -151,8 +155,9 @@ def _retryable(exc: Exception) -> bool:
                                       "Error building extension"))
 
 
-def _run_job_with_retries(spec: SweepSpec, job, tr, te, max_retries: int,
-                          retry_backoff_s: float, verbose: bool):
+def _run_job_with_retries(spec: SweepSpec, job, tr, te, dmesh, per_m: bool,
+                          max_retries: int, retry_backoff_s: float,
+                          verbose: bool):
     """Run one job with bounded retry-with-backoff; returns
     ``(job_result, status, attempts)``.  The engine is deterministic, so
     retries target transient failures, not numerics: a curve that
@@ -172,7 +177,8 @@ def _run_job_with_retries(spec: SweepSpec, job, tr, te, max_retries: int,
             jr = engine.sweep(
                 job.algorithm, tr, te, spec.ms, iters=spec.iters,
                 eval_every=spec.eval_every, problem=job.problem,
-                n_seeds=spec.n_seeds, **job.kwargs)
+                n_seeds=spec.n_seeds, per_m=per_m, mesh=dmesh,
+                **job.kwargs)
         except Exception as exc:  # noqa: BLE001 — one job must not kill the sweep
             last_exc = exc
             if verbose:
@@ -211,12 +217,19 @@ def _cost_readout(job_result: Dict, epsilon: float, asynchronous: bool):
 
 def run_sweep(spec: SweepSpec, *, device="cuda", use_cache: bool = True,
               force: bool = False, cache_dir: Optional[str] = None,
-              verbose: bool = False, journal: bool = True,
+              verbose: bool = False, per_m: bool = False,
+              mesh: "dist_mesh.MeshLike" = None, journal: bool = True,
               max_retries: int = 1, retry_backoff_s: float = 0.25,
               dedup: bool = False, cache_cap: Optional[int] = None) -> Dict:
     """Execute (or fetch from the port's cache) the sweep a spec
     describes, on ``device`` (default the GPU; raises without one unless
     ``device="cpu"``).
+
+    ``per_m`` runs each worker count alone (the sequential reference
+    path, never sharded).  ``mesh`` (or, when None, the spec's
+    execution-only ``devices``) shards every job's buckets over a device
+    mesh of ``device``'s type (`repro_torch.distributed.get_mesh`);
+    results and cache keys are mesh-invariant.
 
     ``journal=True`` (with ``use_cache``) appends every finished job to a
     crash journal beside the artifact and, on a re-run after a crash,
@@ -244,7 +257,12 @@ def run_sweep(spec: SweepSpec, *, device="cuda", use_cache: bool = True,
                 _INFLIGHT.release(fp)
             hit["cache"] = {"hit": True, "path": artifact_cache.artifact_path(
                 cache_dir, spec.name, fp)}
-            hit["execution"] = execution
+            # a hit executes nothing, so the mesh request is never
+            # resolved: an artifact computed elsewhere serves even where
+            # the spec's `devices` ask cannot be met
+            hit["execution"] = {**execution,
+                                "devices": len(dist_mesh.available(dev)),
+                                "sharded": False}
             return hit
         if not dedup or leased:
             break
@@ -265,7 +283,8 @@ def run_sweep(spec: SweepSpec, *, device="cuda", use_cache: bool = True,
                         jobs=len(spec.jobs)):
             return _compute_sweep(
                 spec, fp, cache_dir, dev, execution, use_cache=use_cache,
-                force=force, verbose=verbose, journal=journal,
+                force=force, verbose=verbose, per_m=per_m, mesh=mesh,
+                journal=journal,
                 max_retries=max_retries, retry_backoff_s=retry_backoff_s,
                 cache_cap=cache_cap)
     finally:
@@ -276,11 +295,18 @@ def run_sweep(spec: SweepSpec, *, device="cuda", use_cache: bool = True,
 
 def _compute_sweep(spec: SweepSpec, fp: str, cache_dir: str, dev,
                    execution: Dict, *, use_cache: bool, force: bool,
-                   verbose: bool, journal: bool, max_retries: int,
-                   retry_backoff_s: float, cache_cap: Optional[int]) -> Dict:
+                   verbose: bool, per_m: bool, mesh, journal: bool,
+                   max_retries: int, retry_backoff_s: float,
+                   cache_cap: Optional[int]) -> Dict:
     """The cache-miss path of `run_sweep`: journal replay, job execution,
     readouts, artifact store."""
     _SWEEP_COMPUTES.inc()
+    dmesh = dist_mesh.resolve(mesh if mesh is not None else spec.devices,
+                              device=dev)
+    execution = {**execution,
+                 "devices": dmesh.n_devices if dmesh is not None else 1,
+                 "sharded": (dmesh is not None and dmesh.n_devices > 1
+                             and not per_m)}
     jpath = journal_mod.journal_path(cache_dir, spec.name, fp)
     journaled: Dict[str, Dict] = {}
     if use_cache and journal and not force:
@@ -337,7 +363,8 @@ def _compute_sweep(spec: SweepSpec, fp: str, cache_dir: str, dev,
         with trace.span("job", key=job.key, algorithm=job.algorithm,
                         dataset=job.dataset):
             jr, status, attempts = _run_job_with_retries(
-                spec, job, tr, te, max_retries, retry_backoff_s, verbose)
+                spec, job, tr, te, dmesh, per_m, max_retries,
+                retry_backoff_s, verbose)
         jr["dataset"] = job.dataset
         jr["status"] = status
         if status in ("diverged", "failed"):

@@ -18,7 +18,7 @@ import dataclasses
 import hashlib
 import inspect
 import json
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 from repro_torch import random as R
 from repro_torch.core import problems as problems_mod
@@ -30,6 +30,11 @@ from repro_torch.data import synth
 ENGINE_VERSION = 1
 
 BACKEND = "torch"
+
+#: SweepSpec fields that steer execution only (where a sweep runs, never
+#: what it computes): `computational_dict` drops them, so they enter
+#: neither the fingerprint nor the stored artifact.
+EXECUTION_ONLY_FIELDS = ("devices",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,10 +98,18 @@ class SweepSpec:
     characters_rows: int = 0             # §IV summary rows; 0 = default cap
     split_seed: int = 0                  # key for shuffled splits
     n_seeds: int = 1                     # seed replicates per job
+    #: execution only (`EXECUTION_ONLY_FIELDS`): the device mesh request
+    #: `repro_torch.distributed.get_mesh` resolves — None = unsharded,
+    #: "auto" = every available device, an int = that many
+    devices: Optional[Union[int, str]] = None
 
     def validate(self) -> "SweepSpec":
         if not self.jobs:
             raise ValueError(f"spec {self.name!r} has no jobs")
+        if self.devices is not None and self.devices != "auto" and (
+                not isinstance(self.devices, int) or self.devices < 1):
+            raise ValueError(f"spec {self.name!r}: devices={self.devices!r} "
+                             f"must be None, 'auto', or a positive int")
         if len(set(self.ms)) != len(self.ms) or any(m < 1 for m in self.ms):
             raise ValueError(f"spec {self.name!r}: bad worker grid {self.ms}")
         if self.iters < self.eval_every or self.eval_every < 1:
@@ -160,9 +173,12 @@ def registry_signature(spec: SweepSpec) -> Dict[str, str]:
 
 
 def computational_dict(spec: SweepSpec) -> Dict:
-    """``spec.to_dict()`` with unset job labels dropped — the same dict
-    the reference persists for the same spec."""
+    """``spec.to_dict()`` minus `EXECUTION_ONLY_FIELDS` and with unset job
+    labels dropped — the same dict the reference persists for the same
+    spec, and the one the fingerprint hashes."""
     d = spec.to_dict()
+    for field in EXECUTION_ONLY_FIELDS:
+        d.pop(field, None)
     for job in d["jobs"]:
         if job.get("label") is None:
             job.pop("label", None)

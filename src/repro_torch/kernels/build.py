@@ -16,6 +16,8 @@ import functools
 import os
 import threading
 
+from repro_torch.telemetry import trace
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", name)
            for name in ("bind.cpp", "l0.cu", "quantize.cu", "rmsnorm.cu",
@@ -51,9 +53,13 @@ def _load():
 
 def extension():
     """The loaded ``repro_torch_kernels`` module (built on first call;
-    concurrent first calls build once)."""
+    concurrent first calls build once).  The build is a ``compile`` span
+    under an active tracer."""
     with _BUILD_LOCK:
-        return _load()
+        if _load.cache_info().currsize:
+            return _load()
+        with trace.span("compile", sources=len(SOURCES)):
+            return _load()
 
 
 def count_launch(wrapper) -> None:

@@ -269,6 +269,12 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(200, payload)
 
 
+class _Server(ThreadingHTTPServer):
+    # socketserver's listen backlog of 5 lets concurrent clients past the
+    # fifth be reset while the accept loop waits for the interpreter lock
+    request_queue_size = 128
+
+
 class ServiceServer:
     """Owns the ThreadingHTTPServer + its serve thread.
 
@@ -278,7 +284,7 @@ class ServiceServer:
     def __init__(self, service=None, *, host: str = "127.0.0.1",
                  port: int = 0, verbose: bool = False):
         self.service = service
-        self._httpd = ThreadingHTTPServer((host, port), _Handler)
+        self._httpd = _Server((host, port), _Handler)
         self._httpd.service = service
         self._httpd.verbose = verbose
         self._httpd.t0 = time.time()

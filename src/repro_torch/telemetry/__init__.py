@@ -10,6 +10,12 @@ port's copies of ``repro/telemetry/{trace,metrics,recorder}.py``).
     contract is the reference's.
   * `recorder` — bounded rings of sweep progress events and mirrored
     spans (``GET /flight``).
+  * `instrument` — the per-bucket dispatch span with its device-synced
+    ``execute`` child (imports torch; not imported here).
+
+CLI: ``python -m repro_torch.telemetry`` dumps the process registry,
+``--summarize TRACE`` phase-breaks a saved trace and ``--watch URL``
+tails a live ``/flight`` plane.
 
 The package imports nothing else of the port, so any module can
 instrument itself without cycles.

@@ -751,3 +751,72 @@ def test_gossip_step_on_the_card_matches_the_cpu(cuda_device):
         off += int((diff > quantum[:, None] * 1e-3).sum())
         total += diff.numel()
     assert off <= 1e-3 * total, (off, total)
+
+
+@pytest.mark.cuda
+def test_mesh_path_on_the_card(cuda_device):
+    """upper_bound's buckets sharded over 4 shards of the card hold every
+    curve to 1e-5 of mesh=None (ECD-PSGD 2e-2) with every m_max equal; a
+    one-shard mesh is bit-exact; each shard launches the fused tail once
+    a step; the race at m = 4 on 4 shards holds the staleness oracle."""
+    from repro_torch.data import synth
+    from repro_torch import random as R
+    from repro_torch.distributed import from_devices, run_hogwild_sharded
+    from repro_torch.experiments import engine, registry, runner
+    spec = registry.get_spec("upper_bound", iters=60, seeds=2)
+    base = runner.run_sweep(spec, device=cuda_device, use_cache=False)
+    kernels.reset_launch_counts()
+    sharded = runner.run_sweep(spec, device=cuda_device, use_cache=False,
+                               mesh=from_devices([cuda_device] * 4))
+    assert kernels.launch_counts()["ecd_compress_rows"] == 4 * 3 * 60
+    one = runner.run_sweep(spec, device=cuda_device, use_cache=False,
+                           mesh=from_devices([cuda_device]))
+    assert sharded["execution"]["sharded"] and sharded["execution"][
+        "devices"] == 4
+    for key, jb in base["jobs"].items():
+        js, jo = sharded["jobs"][key], one["jobs"][key]
+        tol = 2e-2 if jb["algorithm"] == "ecd_psgd" else 1e-5
+        for a, b in zip(js["losses_seeds"], jb["losses_seeds"]):
+            for ca, cb in zip(a, b):
+                assert ca == pytest.approx(cb, abs=tol), key
+        assert js["measured_m_max"] == jb["measured_m_max"]
+        assert jo["losses_seeds"] == jb["losses_seeds"]
+    ds = synth.get_generator("higgs_like")(R.PRNGKey(0, device=cuda_device),
+                                           n=400, d=16)
+    tr, te = ds.split(key=R.PRNGKey(0, device=cuda_device))
+    kw = dict(iters=800, gamma=0.05, eval_every=200)
+    race = run_hogwild_sharded(tr, te, m=4, mesh=from_devices(
+        [cuda_device] * 4), **kw)
+    oracle = engine.sweep("hogwild", tr, te, [4], **kw)["losses"][0]
+    assert race["psum_rounds"] == 800 // 4 + 4
+    for a, b in zip(race["losses"], oracle):
+        assert a == pytest.approx(b, abs=1e-5)
+
+
+@pytest.mark.cuda
+def test_traced_sweep_on_the_card(cuda_device, tmp_path):
+    """Under a tracer every bucket span on the card has an execute child
+    and the artifact bytes equal an untraced run's."""
+    from repro_torch.experiments import registry, runner
+    from repro_torch.telemetry import trace
+    spec = registry.get_spec("upper_bound", iters=40)
+    plain = runner.run_sweep(spec, device=cuda_device,
+                             cache_dir=str(tmp_path / "plain"))
+    trace.start()
+    try:
+        traced = runner.run_sweep(spec, device=cuda_device,
+                                  cache_dir=str(tmp_path / "traced"))
+    finally:
+        tracer = trace.stop()
+    with open(plain["cache"]["path"], "rb") as a, \
+            open(traced["cache"]["path"], "rb") as b:
+        assert a.read() == b.read()
+    events = tracer.events
+    buckets = [e for e in events if e["name"] == "bucket"]
+    executes = [e for e in events if e["name"] == "execute"]
+    assert buckets and len(executes) >= len(buckets)
+    for b in buckets:
+        assert any(x["tid"] == b["tid"] and x["ts"] >= b["ts"] - 1e-3
+                   and x["ts"] + x["dur"] <= b["ts"] + b["dur"] + 1e-3
+                   for x in executes)
+    assert trace.phase_breakdown(events, root="sweep")["coverage"] >= 0.95

@@ -64,6 +64,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                   "--cache-dir", str(tmp_path)])
     with pytest.raises(RuntimeError):
         resolve_device()
+    with pytest.raises(RuntimeError):
+        run.main(["--spec", "upper_bound", "--iters", "20", "--no-cache",
+                  "--devices", "1", "--seq", "--trace",
+                  str(tmp_path / "t.json"), "--metrics"])
+    from repro_torch.analysis import report
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        report.main(["--quick", "--iters", "20", "--out",
+                     str(tmp_path / "r.md"), "--cache-dir", str(tmp_path)])
+    from repro_torch.distributed import get_mesh
+    with pytest.raises(ValueError, match="no CUDA device"):
+        get_mesh("auto", device="cuda")
+    assert get_mesh().devices == (torch.device("cpu"),)
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import model as M

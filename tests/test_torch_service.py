@@ -218,6 +218,9 @@ def test_http_roundtrip_and_metrics(tmp_path):
     requests get structured 400s; /metrics parses under the port's and
     the reference's strict parsers; /healthz, /flight and /trace serve."""
     svc = make_service(tmp_path)
+    # a fresh, empty last tracer: /trace must not serve the spans of a
+    # test that traced earlier in this process
+    trace.start()
     trace.stop()
     with ServiceServer(svc) as srv:
         X = RNG.normal(size=(40, 6)).tolist()

@@ -32,9 +32,7 @@ def test_spec_dicts_match_reference(name, quick, over):
         warnings.simplefilter("ignore")      # upper_bound ignores n
         jspec = JR.get_spec(name, quick=quick, **over)
         tspec = TR.get_spec(name, quick=quick, **over)
-    ref = jspec.to_dict()
-    assert ref.pop("devices") is None
-    assert tspec.to_dict() == ref
+    assert tspec.to_dict() == jspec.to_dict()
     assert TS.computational_dict(tspec) == JS.computational_dict(jspec)
 
 

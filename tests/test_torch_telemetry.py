@@ -219,9 +219,9 @@ def _tiny_spec(name):
 
 
 def test_run_sweep_publishes_flight_events_and_spans(tmp_path):
-    """A computed sweep leaves sweep_started -> job_started/job_stored per
-    job -> sweep_stored in the recorder and the reference's span names in
-    the trace; a cache hit publishes nothing; the artifact is
+    """A computed sweep leaves sweep_started -> job_started/grid/job_stored
+    per job -> sweep_stored in the recorder and the reference's span names
+    in the trace; a cache hit publishes nothing; the artifact is
     byte-identical to one computed with tracing off."""
     spec = _tiny_spec("tel_flight")
     untraced = runner.run_sweep(spec, device="cpu",
@@ -232,11 +232,12 @@ def test_run_sweep_publishes_flight_events_and_spans(tmp_path):
                               cache_dir=str(tmp_path / "b"))
     TT.stop()
     kinds = [e["kind"] for e in RECORDER.snapshot(since=seq0)["events"]]
-    assert kinds == ["sweep_started", "job_started", "job_stored",
-                     "job_started", "job_stored", "sweep_stored"]
+    assert kinds == ["sweep_started", "job_started", "grid", "job_stored",
+                     "job_started", "grid", "job_stored", "sweep_stored"]
     names = {e["name"] for e in tracer.events}
-    assert names == {"sweep", "journal_read", "datasets", "job", "readout",
-                     "journal_append", "store"}
+    assert names == {"sweep", "journal_read", "datasets", "job", "grid",
+                     "bucket", "execute", "readout", "journal_append",
+                     "store"}
     breakdown = TT.phase_breakdown(tracer.events, root="sweep")
     assert breakdown["phases"]["job"]["count"] == 2
     assert breakdown["coverage"] > 0.5
