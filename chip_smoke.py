@@ -22,7 +22,9 @@
    its tiles).  Each kernel's time, its plain version's time, its bound
    and (K5, K6) the time of the one PyTorch call that computes the same
    function are measured at the main path's shape (CUDA-graph replays
-   timed with CUDA events); K5 also at a decode step's 4 rows; K2 at the
+   timed with CUDA events); K5 also at a decode step's 4 rows and at
+   phase families' 8192 rows of 2048, 4096 and 7168, K6 also at (4, 32,
+   2048, 64) and at (4, 56, 2048, 128) against (4, 8, 2048, 128); K2 at the
    main path's six shapes, at (1, 4000, 400) and at the six shapes the
    other specs give it, beside an empty kernel's time (the launch floor);
    K1 as the path calls it, from one input, beside ``torch.count_nonzero``,
@@ -115,6 +117,24 @@
    2e-2 relative L2, and, in float32 on a 6-layer cut, the prefill's
    logits at each of 1100 positions against token-by-token decoding
    within 5e-4.
+6b. Phase families: gemma3-1b is freed (the bytes still allocated are
+   printed), then xlstm-350m and zamba2-1.2b at full width and depth and
+   arctic-480b at full width and 2 layers (its 35 do not fit) are served
+   in bfloat16 from seed 0 as in phase 5, one after another: K5 and K6
+   must launch exactly ``FAMILIES``' counts per prefill (xlstm 24 and 0,
+   zamba2 77 and 6, arctic 5 and 2), K5 as often per decode step and K6
+   never (41 steps a run).  Prefill ms, decode ms per token, peak GB and
+   one profiled prefill (device activity only) per family; the kernel
+   prefill against the no-kernel prefill in bfloat16 (relative L2,
+   printed: at random weights zamba2's depth and arctic's top-2 routing
+   amplify an ulp past 2e-2, see ``run_families``).  Checks: (a) each
+   kernel prefill against the no-kernel prefill in float32 at the served
+   width (arctic at 1 layer) within 2e-2 relative L2; (b) in float32,
+   prefill logits against token-by-token
+   decoding within 5e-4 at each of 256 positions, on xlstm at 8 layers,
+   zamba2 at 6 and arctic at full width, 1 layer, 8 experts and capacity
+   factor 8; (c) the three reduced configs in float32 from the same
+   weights on the card and the CPU, logits within 1e-4.
 7. Phase train: ``launch.train.train_loop`` at full-width gemma3-1b in
    bfloat16 on the card (AdamW, lr 3e-4, every layer recomputed in the
    backward, batches of 8 x 1024 tokens from ``hmm_stream``), 10 sync
@@ -142,7 +162,8 @@
 10. Prints one JSON line with each kernel's numbers (the sweep kernels'
    launches also per spec, per report spec and in all for the report,
    and per service path, K3/K4's per path, their
-   record at the gossip's largest leaf), then the final line
+   record at the gossip's largest leaf, K5/K6's per family), then the
+   final line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a GPU, outside a checkout of
@@ -171,6 +192,26 @@ SWEEP_KERNELS = ("l0_rows", "l0_shift_sum", "ecd_compress_rows")
 # step (phase gossip) launches them standalone
 FUSED_AWAY = ("quantize_rows", "dequantize_rows")
 SERVE_KERNELS = ("rmsnorm", "flash_attention")
+# phase families: (arch, layers kept: None for all) and the K5 and K6
+# launches of one prefill; a decode step launches K5 as often and K6 never.
+# K5: every RMSNorm (norm1 of each layer, norm2 of an attention or shared-
+# attention layer, the final norm) and each SSM block's gated norm;
+# xlstm normalises with LayerNorm elsewhere.  K6: one per attention or
+# shared-attention layer.
+FAMILIES = (("xlstm-350m", None, 24, 0),      # 21 mLSTM + 3 sLSTM gated
+            ("zamba2-1.2b", None, 77, 6),     # 38 + 6 + 1 + 32 gated
+            ("arctic-480b", 2, 5, 2))         # 2 * 2 + 1
+# layers of check (a)'s float32 models (None: all): arctic's 128 experts
+# hold one layer in float32 on one card (56 GB)
+FAMILY_CHECK_LAYERS = {"xlstm-350m": None, "zamba2-1.2b": None,
+                       "arctic-480b": 1}
+FAMILY_STEPS = 16 + 24          # decode steps of a run: prompt + generated
+# K5 at the families' prefill widths (8192 rows): zamba2's norms and
+# xlstm's mLSTM gated norm, zamba2's gated norm, arctic's norms
+K5_FAMILY_SHAPES = ((8192, 2048), (8192, 4096), (8192, 7168))
+# K6 at the families' prefill shapes (B, H, KV, S, D): zamba2's shared
+# attention and arctic's GQA 56:8
+K6_FAMILY_SHAPES = ((4, 32, 32, 2048, 64), (4, 56, 8, 2048, 128))
 
 
 def _fail(msg: str) -> int:
@@ -604,12 +645,14 @@ def check_lm_kernels(dev):
     records = {}
 
     # K5: the prefill's (4 * 2048, 1152) rows and a decode step's 4, in
-    # bfloat16, plus the reference's ragged float32 shapes
+    # bfloat16, the families' prefill widths (phase families), plus the
+    # reference's ragged float32 shapes
     err = 0.0
     for (n, d), dtype in [((8192, 1152), torch.bfloat16),
                           ((4, 1152), torch.bfloat16),
                           ((5, 1152), torch.float32),
-                          ((300, 128), torch.float32)]:
+                          ((300, 128), torch.float32)] + [
+                              (s, torch.bfloat16) for s in K5_FAMILY_SHAPES]:
         x, w = randn(n, d, dtype=dtype), randn(d, dtype=dtype)
         got = krms.rmsnorm_2d(x, w).float()
         want = krms.rmsnorm_plain(x, w).float()
@@ -624,7 +667,7 @@ def check_lm_kernels(dev):
     # times at the prefill's shape and at a decode step's (2120 of the
     # serving run's 2173 launches are 4 rows)
     timed = {}
-    for n, d in ((8192, 1152), (4, 1152)):
+    for n, d in ((8192, 1152), (4, 1152)) + K5_FAMILY_SHAPES:
         x = randn(n, d, dtype=torch.bfloat16)
         w = randn(d, dtype=torch.bfloat16)
         nbytes = 2 * n * d * 2 + d * 2
@@ -632,14 +675,15 @@ def check_lm_kernels(dev):
         ms, plain_ms, library_ms = _timed(
             krms.rmsnorm_2d, krms.rmsnorm_plain, (x, w), nbytes,
             library=lambda a, b, d=d: F.rms_norm(a, (d,), b, krms.EPS))
-        timed[n] = {"shape": [n, d, "bf16"], "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": by,
-                    "library_ms": library_ms}
+        timed[n, d] = {"shape": [n, d, "bf16"], "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by, "library_ms": library_ms}
     records["rmsnorm"] = {
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:20",
-        "max_abs_err": err, **timed[8192], "decode": timed[4]}
+        "max_abs_err": err, **timed[8192, 1152], "decode": timed[4, 1152],
+        "by_shape": [timed[s] for s in K5_FAMILY_SHAPES]}
 
     # K6: gemma3-1b's prefill (4 queries heads, 1 KV head, D = 256) with
     # and without its 1024 window, the reference's sweep shapes (ragged
@@ -659,6 +703,13 @@ def check_lm_kernels(dev):
                (1, 1000, 8, 1, 128, 0), (1, 1000, 4, 1, 256, 100),
                (2, 40, 4, 2, 64, 0), (1, 17, 2, 1, 256, 5),
                (1, 1100, 4, 1, 256, 1024)]]
+    # the families' prefill shapes (phase families), and the float32
+    # shapes of their checks (b) and (c)
+    cases += [((B, S, H, KV, D, 0), torch.bfloat16)
+              for B, H, KV, S, D in K6_FAMILY_SHAPES]
+    cases += [(c, torch.float32) for c in
+              [(1, 256, 32, 32, 64, 0), (1, 256, 56, 8, 128, 0),
+               (2, 40, 4, 4, 64, 0), (2, 40, 4, 1, 64, 0)]]
     err_by_dtype = {"float32": 0.0, "bfloat16": 0.0}
     for (B, S, H, KV, D, window), dtype in cases:
         q = randn(B, S, H, D, dtype=dtype)
@@ -706,6 +757,25 @@ def check_lm_kernels(dev):
                              "library_ms": library_ms, "gflop": nops / 1e9}
     mean = {key: sum(r["layers"] * r[key] for r in by_window.values()) / 26
             for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    family_shapes = []
+    for B, H, KV, S, D in K6_FAMILY_SHAPES:
+        q = randn(B, H, S, D, dtype=torch.bfloat16)
+        k = randn(B, KV, S, D, dtype=torch.bfloat16)
+        v = randn(B, KV, S, D, dtype=torch.bfloat16)
+        nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
+        nops = 4 * B * H * D * _band_pairs(S, S, 0)
+        bound, by = _bound_ms(nbytes, nops, BF16_TENSOR_OPS_PER_S)
+        ms, plain_ms, library_ms = _timed(
+            lambda a, b, c: kfa.flash_attention_bhsd(a, b, c, True, 0),
+            lambda a, b, c: kfa.attention_plain(a, b, c, True, 0),
+            (q, k, v), nbytes,
+            library=lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, is_causal=True, enable_gqa=True), reps=8)
+        family_shapes.append({
+            "shape": [B, H, S, D, KV, "bf16"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms, "gflop": nops / 1e9})
+        del q, k, v
     records["flash_attention"] = {
         "name": "flash_attention", "route": "cuda",
         "routes": {"bfloat16": "flash_wgmma_kernel: wgmma on the tensor "
@@ -717,7 +787,7 @@ def check_lm_kernels(dev):
         "max_abs_err_by_dtype": err_by_dtype,
         "shape": [B, H, S, D, KV, "bf16"],
         "bound_by": by_window[0]["bound_by"], "by_window": by_window,
-        **mean}
+        **mean, "by_shape": family_shapes}
     return records
 
 
@@ -776,19 +846,21 @@ def run_serve(dev):
     return report, launches, params, batch, logits
 
 
-def _profile(fn, top: int = 10):
+def _profile(fn, top: int = 10, cpu: bool = True):
     """``fn()`` under ``torch.profiler``: the ``top`` device kernels by
     total time, the device's busy share of the window (the union of kernel
     intervals over the window's wall time, host clock around work that
     ends in a synchronise), and the count of device kernels and of copies
-    and fills.  Returns "not measured" when the trace holds no device
-    time."""
+    and fills.  ``cpu=False`` records device activity only (a window of
+    some 10^5 launches parses in a fraction of the time).  Returns "not
+    measured" when the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
+                                            else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -897,6 +969,12 @@ def run_sweep_steps(dev, steps: int = 300):
     return report, prof
 
 
+def _rel_l2(a, b) -> float:
+    import torch
+    return float(torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
 def check_serve(dev, params, batch, logits):
     """Phase 6: (a) the kernel prefill against the prefill with no kernel,
     bfloat16 at full width: relative L2 of the next-token logits at most
@@ -909,14 +987,10 @@ def check_serve(dev, params, batch, logits):
     from repro_torch.models import model as M
     from repro_torch.serve import engine as E
 
-    def rel_l2(a, b):
-        return float(torch.linalg.vector_norm(a - b)
-                     / torch.linalg.vector_norm(b))
-
     cfg = params.cfg
     prefill_plain = E.make_prefill_step(cfg, attention_impl="reference")
     plain = prefill_plain(params, batch)
-    rel = rel_l2(logits, plain)
+    rel = _rel_l2(logits, plain)
     agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
     if not rel <= 2e-2:
         raise AssertionError(f"kernel prefill differs from the plain one: "
@@ -924,8 +998,8 @@ def check_serve(dev, params, batch, logits):
     # where the difference comes from: each bfloat16 path against the same
     # weights in float32 (printed, not checked)
     exact = prefill_plain(params.float(), batch)
-    to_f32 = {"kernel": rel_l2(logits, exact), "reference": rel_l2(plain,
-                                                                   exact)}
+    to_f32 = {"kernel": _rel_l2(logits, exact),
+              "reference": _rel_l2(plain, exact)}
     del params, plain, exact
 
     cfg6 = dataclasses.replace(cfg, num_layers=6, dtype="float32")
@@ -946,6 +1020,198 @@ def check_serve(dev, params, batch, logits):
     return {"a_rel_l2": rel, "a_argmax_agreement": agree,
             "a_rel_l2_to_float32": to_f32, "b_max_abs_diff": err,
             "b_windows": [s.window for s in M.layer_plan(cfg6)]}
+
+
+def run_families(dev):
+    """Phase families: xlstm-350m and zamba2-1.2b at full width and depth
+    and arctic-480b at full width and 2 layers, bfloat16, random weights
+    from seed 0.  For each: a prefill of 4 x 2048 tokens through
+    ``make_prefill_step``, then ``greedy_generate`` of 24 tokens for 4
+    requests of 16 prompt tokens, with the counters set to 0 just before
+    and read after the prefill and after the run: K5 and K6 must launch
+    exactly ``FAMILIES``' counts per prefill, K5 as often per decode step,
+    K6 never in decoding, no other kernel at all.  One more prefill runs
+    under ``torch.profiler`` (device activity only), and one with no
+    kernel (``attention_impl="reference"``): the relative L2 of the two
+    prefills' next-token logits in bfloat16 is printed, not checked.
+    At random weights neither bfloat16 path is within 2e-2 of the other
+    for zamba2 (both lie 0.26-0.27 from a float32 evaluation of the same
+    weights: 38 layers amplify bfloat16 rounding) or arctic (a change in
+    an ulp flips top-2 choices among 128 experts).  Check (a) is made in
+    float32 from seed 0 at the same width (arctic at 1 layer, all 128
+    experts): the kernel prefill's next-token logits against the
+    no-kernel prefill's within 2e-2 relative L2.  Each model is freed
+    before the next is built.  Returns ({arch: report}, {arch: launches
+    of the run})."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+
+    reports, launches = {}, {}
+    for arch, layers, k5, k6 in FAMILIES:
+        cfg = get_arch(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, gen, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights_gb = torch.cuda.memory_allocated() / 1e9
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
+                                         generator=gen, device=dev)}
+        prompts = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                                device=dev)
+        prefill = E.make_prefill_step(cfg)
+        prefill(params, batch)                      # warm-up, not counted
+        E.greedy_generate(params, cfg, prompts, 2, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        per_prefill = kernels.launch_counts()
+        out = E.greedy_generate(params, cfg, prompts, 24, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        run = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {**{k: 0 for k in run}, "rmsnorm": k5, "flash_attention": k6}
+        want_run = {**want, "rmsnorm": k5 * (1 + FAMILY_STEPS)}
+        if per_prefill != want or run != want_run:
+            raise AssertionError(
+                f"{arch}: launches per prefill {per_prefill} (expected "
+                f"{want}), per run {run} (expected {want_run})")
+        if logits.shape != (4, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: prefill logits are malformed or "
+                                 f"not finite")
+        if out.shape != (4, 24) or int(out.min()) < 0 \
+                or int(out.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{arch}: generated tokens malformed: "
+                                 f"{tuple(out.shape)}")
+        report = {"layers": cfg.num_layers, "init_s": init_s,
+                  "weights_gb": weights_gb,
+                  "prefill_ms": (t1 - t0) * 1e3,
+                  "prefill_tokens_per_s": batch["tokens"].numel() / (t1 - t0),
+                  "decode_ms_per_token": (t2 - t1) * 1e3 / FAMILY_STEPS,
+                  "generated_tokens_per_s": out.numel() / (t2 - t1),
+                  "max_memory_allocated_gb": peak_gb,
+                  "launches_per_prefill": {k: per_prefill[k]
+                                           for k in SERVE_KERNELS}}
+        report["profile"] = _profile(lambda: prefill(params, batch),
+                                     cpu=False)
+        plain = E.make_prefill_step(cfg, attention_impl="reference")(
+            params, batch)
+        report["bf16_rel_l2_kernel_vs_plain"] = _rel_l2(logits, plain)
+        report["bf16_argmax_agreement"] = float(
+            (logits.argmax(-1) == plain.argmax(-1)).float().mean())
+        reports[arch], launches[arch] = report, run
+        del params, prompts, logits, plain, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        layers = FAMILY_CHECK_LAYERS[arch]
+        cfg32 = dataclasses.replace(get_arch(arch), dtype="float32",
+                                    **({"num_layers": layers} if layers
+                                       else {}))
+        params = M.init_params(
+            cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+        logits = E.make_prefill_step(cfg32)(params, batch)
+        plain = E.make_prefill_step(cfg32, attention_impl="reference")(
+            params, batch)
+        rel = _rel_l2(logits, plain)
+        if not rel <= 2e-2:
+            raise AssertionError(f"{arch}: kernel prefill differs from the "
+                                 f"plain one in float32: relative L2 {rel} "
+                                 f"> 2e-2")
+        report["a_layers"] = cfg32.num_layers
+        report["a_rel_l2"] = rel
+        report["a_argmax_agreement"] = float(
+            (logits.argmax(-1) == plain.argmax(-1)).float().mean())
+        del params, batch, logits, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    return reports, launches
+
+
+def check_families(dev):
+    """Phase families, checks (b) and (c).  (b) float32 on the card: the
+    prefill's logits at every position of a 256-token prompt against
+    token-by-token decoding within 5e-4, the reference's own bound, on
+    xlstm-350m at 8 layers (7 mLSTM, 1 sLSTM), zamba2-1.2b at 6 (5 Mamba2,
+    1 shared attention) and arctic-480b at full width, 1 layer, 8 experts
+    and capacity factor 8 (no assignment dropped: the reference test's
+    setting).  (c) each reduced config in float32 from the same weights
+    on the card (kernels) and on the CPU (plain versions): logits of a
+    prefill of 2 x 40 tokens and of 40 decode steps within 1e-4, the
+    load-balance loss within 1e-5 relative."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+
+    out = {"b_max_abs_diff": {}, "c_max_abs_diff": {}}
+    for arch, layers in (("xlstm-350m", 8), ("zamba2-1.2b", 6),
+                         ("arctic-480b", 1)):
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers,
+                                  dtype="float32")
+        if cfg.moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, num_experts=8, capacity_factor=8.0))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = M.init_params(cfg, gen, dev)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                               device=dev)
+        full, _ = M.forward(params, cfg, {"tokens": tokens})
+        state = M.init_decode_state(cfg, 1, tokens.shape[1], device=dev)
+        err = torch.zeros((), device=dev)
+        for t in range(tokens.shape[1]):
+            step, state = M.decode_step(params, cfg, tokens[:, t:t + 1],
+                                        state)
+            err = torch.maximum(err, (step[:, 0] - full[:, t]).abs().max())
+        err = float(err)
+        if not err <= 5e-4:
+            raise AssertionError(f"{arch} at {layers} layers: prefill and "
+                                 f"decode logits differ by {err} > 5e-4")
+        out["b_max_abs_diff"][arch] = err
+        del params, full, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch, *_ in FAMILIES:
+        cfg = get_arch(arch).reduced()
+        lm = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+        on_card = interop.lm_params(cfg, interop.lm_tree(lm), dev)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                               generator=torch.Generator().manual_seed(4))
+        logits, diffs = {}, []
+        for name, model, toks in (("cpu", lm, tokens),
+                                  ("cuda", on_card, tokens.to(dev))):
+            full, aux = M.forward(model, cfg, {"tokens": toks})
+            state = M.init_decode_state(cfg, 2, 48, device=toks.device)
+            steps = []
+            for t in range(toks.shape[1]):
+                step, state = M.decode_step(model, cfg, toks[:, t:t + 1],
+                                            state)
+                steps.append(step[:, 0])
+            logits[name] = (full.cpu(), torch.stack(steps, 1).cpu(),
+                            float(aux["load_balance_loss"]))
+        for got, want in zip(logits["cuda"][:2], logits["cpu"][:2]):
+            diffs.append(float((got - want).abs().max()))
+        if not max(diffs) <= 1e-4 or not _close(
+                logits["cuda"][2], logits["cpu"][2], 1e-5):
+            raise AssertionError(
+                f"{arch} reduced: card and CPU differ: prefill/decode "
+                f"{diffs}, load-balance loss {logits['cuda'][2]} vs "
+                f"{logits['cpu'][2]}")
+        out["c_max_abs_diff"][arch] = max(diffs)
+    return out
 
 
 def _close(a, b, rel):
@@ -2157,6 +2423,10 @@ def main() -> int:
           f"{json.dumps(k2.pop('kernels_per_call'))}", flush=True)
     print(f"  rmsnorm at a decode step "
           f"{json.dumps(records['rmsnorm']['decode'])}", flush=True)
+    for name in SERVE_KERNELS:
+        for rec in records[name]["by_shape"]:
+            print(f"  {name} at a family shape {json.dumps(rec)}",
+                  flush=True)
     by_window = records["flash_attention"].pop("by_window")
     print(f"  flash_attention per launch by window {json.dumps(by_window)}",
           flush=True)
@@ -2309,6 +2579,24 @@ def main() -> int:
     print(f"phase serve-check: ok in {time.perf_counter() - t0:.2f}s "
           f"{json.dumps(serve_check)}", flush=True)
 
+    # phase families: gemma3-1b (freed above) makes way for the families
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase families: gemma3-1b freed, device memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB", flush=True)
+    t0 = time.perf_counter()
+    families, family_launches = run_families(dev)
+    for arch, rep in families.items():
+        print(f"  family {arch} bf16 prefill 4x2048, greedy 4x(16+24) "
+              f"[{card}] "
+              f"{json.dumps({k: v for k, v in rep.items() if k != 'profile'})}"
+              f" launches={family_launches[arch]}", flush=True)
+        print(f"  family {arch} prefill profile {json.dumps(rep['profile'])}",
+              flush=True)
+    family_checks = check_families(dev)
+    print(f"phase families: ok in {time.perf_counter() - t0:.2f}s "
+          f"{json.dumps(family_checks)}", flush=True)
+
     t0 = time.perf_counter()
     train, train_profile = run_train(dev)
     print(f"phase train: ok in {time.perf_counter() - t0:.2f}s [{card}] "
@@ -2341,6 +2629,11 @@ def main() -> int:
                 **({f"service_{path}": counts[name]
                     for path, counts in service_launches.items()}
                    if name in SWEEP_KERNELS else {})}
+        if name in SERVE_KERNELS:
+            rec["launches_by_family"] = {
+                "gemma3-1b": launches[name],
+                **{arch: counts[name]
+                   for arch, counts in family_launches.items()}}
         if name in FUSED_AWAY:
             rec["launches_by_path"] = {
                 "gossip": gossip_launches[name],
@@ -2348,7 +2641,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "also_replaces", "note", "routes", "max_abs_err_by_dtype",
-            "decode", "launches_by_spec", "launches_by_path", "by_shape")
+            "decode", "launches_by_spec", "launches_by_path",
+            "launches_by_family", "by_shape")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec}
                                   for rec in records.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@
 Every assigned architecture is expressed as an ``ArchConfig`` — a frozen
 dataclass rich enough to describe dense, MoE, SSM, hybrid, VLM-backbone and
 audio enc-dec families.  ``reduced()`` gives a CPU-runnable variant of the
-same family for the tests; the port's dense attention models also run at
-full size on the GPU (``python -m repro_torch.launch.serve --no-reduced``).
+same family for the tests; the port's models also run at full size on
+the GPU (``python -m repro_torch.launch.serve --no-reduced``).
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ turned into the port's, so tests can feed both packages identical inputs.
   :func:`model`    a model vector -> a float32 tensor
   :func:`lm_params`  the reference LM's ``init_params`` pytree -> the
                    port's ``CausalLM`` (segments unstacked into per-layer
-                   blocks in layer-plan order)
+                   blocks in layer-plan order, nested MoE subtrees and
+                   zamba2's ``shared_attn`` included)
   :func:`lm_tree`  its inverse: a ``CausalLM`` -> the reference's pytree,
                    each segment's layers stacked on a leading axis
 
@@ -83,71 +84,103 @@ def _array_tensor(a, device):
     return torch.tensor(a, device=device)
 
 
+def _set_leaf(owner, name, a, layer, device):
+    """``owner[name]`` (a ``ParameterDict``) or ``owner.name`` (a module)
+    becomes a parameter holding ``a`` (``a[layer]`` for a stacked leaf)."""
+    if not isinstance(a, torch.Tensor):
+        a = np.asarray(a)
+    t = _array_tensor(a if layer is None else a[layer], device)
+    old = (owner[name] if isinstance(owner, nn.ParameterDict)
+           else getattr(owner, name))
+    if t.shape != old.shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, port expects "
+                         f"{tuple(old.shape)}")
+    param = nn.Parameter(t, requires_grad=False)
+    if isinstance(owner, nn.ParameterDict):
+        owner[name] = param
+    else:
+        setattr(owner, name, param)
+
+
+def _put(pdict, tree, layer, device):
+    """A (nested) dict of leaves -> the parameters of ``pdict``."""
+    if set(pdict.keys()) != set(tree):
+        raise ValueError(f"parameter names differ: port "
+                         f"{sorted(pdict.keys())}, reference {sorted(tree)}")
+    for name, a in tree.items():
+        if isinstance(a, dict):
+            _put(pdict[name], a, layer, device)
+        else:
+            _set_leaf(pdict, name, a, layer, device)
+
+
 def lm_params(cfg, params, device="cpu"):
     """The reference's ``models.model.init_params`` pytree, its leaves as
     numpy arrays or tensors, -> the port's ``CausalLM`` with the same
     weights.  Each segment's leading (layer) axis is unstacked into
-    per-layer blocks in ``layer_plan`` order; tied embeddings and optional
-    QKV biases follow the pytree.  Tensor leaves already on ``device`` are
-    not copied: each parameter is a view of its leaf."""
+    per-layer blocks in ``layer_plan`` order (``norm1`` with ``attn``,
+    ``norm2`` and ``mlp`` or ``moe``, with ``block``, or with ``down``);
+    tied embeddings, optional QKV biases and the top-level
+    ``shared_attn`` follow the pytree.  Tensor leaves already on
+    ``device`` are not copied: each parameter is a view of its leaf."""
     from repro_torch.models import model as M
     lm = M.CausalLM(cfg, None, torch.device("meta"))
-
-    def put(pdict, tree, layer=None):
-        if set(pdict.keys()) != set(tree):
-            raise ValueError(f"parameter names differ: port "
-                             f"{sorted(pdict.keys())}, reference "
-                             f"{sorted(tree)}")
-        for name, a in tree.items():
-            if not isinstance(a, torch.Tensor):
-                a = np.asarray(a)
-            t = _array_tensor(a if layer is None else a[layer], device)
-            if t.shape != pdict[name].shape:
-                raise ValueError(f"{name}: shape {tuple(t.shape)}, port "
-                                 f"expects {tuple(pdict[name].shape)}")
-            pdict[name] = nn.Parameter(t, requires_grad=False)
-
-    put(lm.embed, params["embed"])
-    put(lm.final_norm, params["final_norm"])
+    want = {"embed", "final_norm", "segments"} | {
+        name for name in ("lm_head", "shared_attn") if hasattr(lm, name)}
+    if set(params) != want:
+        raise ValueError(f"top-level names differ: port {sorted(want)}, "
+                         f"reference {sorted(params)}")
+    _put(lm.embed, params["embed"], None, device)
+    _put(lm.final_norm, params["final_norm"], None, device)
     if "lm_head" in params:
-        lm.lm_head = nn.Parameter(_array_tensor(params["lm_head"], device),
-                                  requires_grad=False)
+        _set_leaf(lm, "lm_head", params["lm_head"], None, device)
+    if "shared_attn" in params:
+        _put(lm.shared_attn, params["shared_attn"], None, device)
     blocks = iter(lm.blocks)
     for (_, n), stack in zip(M.segments(cfg), params["segments"]):
-        if set(stack) != {"norm1", "attn", "norm2", "mlp"}:
-            raise NotImplementedError(f"block parts {sorted(stack)}")
         for layer in range(n):
             block = next(blocks)
-            for part in ("norm1", "attn", "norm2", "mlp"):
-                put(getattr(block, part), stack[part], layer)
+            if set(stack) != set(block.parts):
+                raise ValueError(f"block parts differ: port "
+                                 f"{sorted(block.parts)}, reference "
+                                 f"{sorted(stack)}")
+            for part in block.parts:
+                if isinstance(stack[part], dict):
+                    _put(getattr(block, part), stack[part], layer, device)
+                else:
+                    _set_leaf(block, part, stack[part], layer, device)
     return lm
 
 
 def lm_tree(lm, values=None, out=None):
     """A ``CausalLM`` -> the reference's ``init_params`` pytree:
-    ``embed``, ``final_norm``, ``lm_head`` when untied, and ``segments``,
-    one dict per segment of ``models.model.segments`` with each leaf's
-    layers stacked on a leading axis (new memory; the other leaves are the
-    parameters themselves, detached).  ``values``, a dict keyed by the
-    port's parameter names (``named_parameters``), puts its tensors in the
-    parameters' places: the same tree of gradients, say.  ``out``, a tree
-    of that structure, receives every leaf in place and is returned."""
+    ``embed``, ``final_norm``, ``lm_head`` when untied, ``shared_attn``
+    when the model has it, and ``segments``, one dict per segment of
+    ``models.model.segments`` with each leaf's layers stacked on a leading
+    axis (new memory; the other leaves are the parameters themselves,
+    detached).  ``values``, a dict keyed by the port's parameter names
+    (``named_parameters``), puts its tensors in the parameters' places:
+    the same tree of gradients, say.  ``out``, a tree of that structure,
+    receives every leaf in place and is returned."""
     from repro_torch.models import model as M
     if values is None:
         values = {k: v.detach() for k, v in lm.named_parameters()}
 
-    def part(prefix, names, dst, n=None, first=0):
-        got = {}
-        for k in names:
-            if n is not None:
-                got[k] = torch.stack(
-                    [values[f"blocks.{first + i}.{prefix}.{k}"]
-                     for i in range(n)], out=None if dst is None else dst[k])
-            elif dst is None:
-                got[k] = values[f"{prefix}.{k}"]
-            else:
-                got[k] = dst[k].copy_(values[f"{prefix}.{k}"])
-        return got
+    def leaf(names, dst, stacked):
+        if stacked:
+            return torch.stack([values[k] for k in names], out=dst)
+        if dst is None:
+            return values[names[0]]
+        return dst.copy_(values[names[0]])
+
+    def walk(obj, names, dst, stacked=False):
+        """The subtree of ``obj`` (a ``ParameterDict`` or a parameter),
+        named ``names`` (one per stacked layer)."""
+        if not isinstance(obj, nn.ParameterDict):
+            return leaf(names, dst, stacked)
+        return {k: walk(obj[k], [f"{n}.{k}" for n in names],
+                        None if dst is None else dst[k], stacked)
+                for k in obj.keys()}
 
     def sub(*path):
         node = out
@@ -155,17 +188,17 @@ def lm_tree(lm, values=None, out=None):
             node = None if node is None else node[k]
         return node
 
-    tree = {"embed": part("embed", lm.embed.keys(), sub("embed")),
-            "final_norm": part("final_norm", lm.final_norm.keys(),
-                               sub("final_norm"))}
-    if not lm.cfg.tie_embeddings:
-        tree["lm_head"] = (values["lm_head"] if out is None
-                           else out["lm_head"].copy_(values["lm_head"]))
+    tops = ["embed", "final_norm"] + [
+        name for name in ("lm_head", "shared_attn") if hasattr(lm, name)]
+    tree = {name: walk(getattr(lm, name), [name], sub(name))
+            for name in tops}
     tree["segments"], first = [], 0
     for i, (_, n) in enumerate(M.segments(lm.cfg)):
         block = lm.blocks[first]
-        tree["segments"].append({p: part(p, getattr(block, p).keys(),
-                                         sub("segments", i, p), n, first)
-                                 for p in ("attn", "mlp", "norm1", "norm2")})
+        tree["segments"].append({
+            part: walk(getattr(block, part),
+                       [f"blocks.{first + j}.{part}" for j in range(n)],
+                       sub("segments", i, part), stacked=True)
+            for part in block.parts})
         first += n
     return tree

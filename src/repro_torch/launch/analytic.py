@@ -5,8 +5,8 @@ MODEL_FLOPS is 6·N·D for training (2·N·D for a forward pass) plus the
 exact attention terms; bytes are the least HBM traffic a step must move.
 Parameter counts come from the port's model built on the meta device, so
 they cover the families the port builds; the others raise
-NotImplementedError there (ROADMAP A14).  Every model the port builds is
-dense: its active parameters are all of them.
+NotImplementedError there (ROADMAP A14).  A MoE model's active parameters
+leave out, per MoE layer, the routed experts beyond the top k.
 """
 
 from __future__ import annotations
@@ -16,10 +16,17 @@ from repro_torch.models import model as M
 
 
 def param_counts(cfg: ArchConfig):
-    """(total_params, active_params)."""
+    """(total_params, active_params) — active excludes non-routed experts."""
     lm = M.init_params(cfg, device="meta")
     total = sum(p.numel() for p in lm.parameters())
-    return total, total
+    active = total
+    if cfg.moe is not None:
+        m = cfg.moe
+        expert_params = 3 * cfg.d_model * m.expert_d_ff
+        n_moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+        active = total - n_moe_layers * (m.num_experts - m.top_k) \
+            * expert_params
+    return total, active
 
 
 def _attn_layers(cfg: ArchConfig):
@@ -76,9 +83,10 @@ def model_bytes(cfg: ArchConfig, shape: InputShape, *, opt_bytes=8,
         b = total * param_bytes
     else:
         b = active * param_bytes
-        # KV cache read per decode step
+        # KV cache read per decode step (SSM states are not counted)
         for spec in M.layer_plan(cfg):
-            T = min(spec.window or shape.seq_len, shape.seq_len)
-            b += (2 * shape.global_batch * T * cfg.num_kv_heads
-                  * cfg.resolved_head_dim * param_bytes)
+            if spec.kind in ("attn", "shared_attn"):
+                T = min(spec.window or shape.seq_len, shape.seq_len)
+                b += (2 * shape.global_batch * T * cfg.num_kv_heads
+                      * cfg.resolved_head_dim * param_bytes)
     return float(b)

@@ -20,16 +20,29 @@ import torch.nn.functional as F
 from repro_torch.kernels import rmsnorm as krms
 
 
-def _dense_init(gen, shape, dtype, device, scale=None):
+def _dense_init(gen, shape, dtype, device, scale=None, stacked=False):
     """``normal(shape) * scale`` drawn in float32 from ``gen`` and cast to
-    ``dtype``; ``scale`` defaults to ``1 / sqrt(fan_in)``.  On the meta
-    device only the shape is made."""
+    ``dtype``; ``scale`` defaults to ``1 / sqrt(shape[0])`` (the fan-in;
+    for stacked experts the reference's own choice, ``1 / sqrt(E)``).
+    The draw is scaled in place, so a leaf holds one float32 copy at most;
+    ``stacked=True`` draws one slice of the leading axis at a time into
+    the ``dtype`` tensor, so a stack of experts never exists in float32.
+    On the meta device only the shape is made."""
     device = torch.device(device)
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device).mul_(scale)
+
+    if not stacked:
+        return draw(shape).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = draw(shape[1:])
+    return out
 
 
 # ---------------------------------------------------------------------------

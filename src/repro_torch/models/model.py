@@ -1,12 +1,17 @@
-"""The causal LM of the dense attention families (the port of
-``repro/models/model.py``, blocks of kind ``attn`` without MoE or
-cross-attention).
+"""The causal LM of every family the port runs (the port of
+``repro/models/model.py``): dense attention, MoE attention (arctic),
+SSM (xLSTM's mLSTM and sLSTM) and hybrid (zamba2: Mamba2 with a shared
+attention block).
 
 The reference stacks each run of identical layers and scans over it; the
 port keeps one module per layer: :class:`CausalLM` holds ``embed``, a
-``ModuleList`` ``blocks`` in layer-plan order and ``final_norm`` (plus
-``lm_head`` when embeddings are not tied).  The reference's public
-functions are thin functions over it:
+``ModuleList`` ``blocks`` in layer-plan order, ``final_norm``, ``lm_head``
+when embeddings are not tied and ``shared_attn`` when a layer of the
+plan is a shared-attention layer.  A :class:`Block` holds the reference's
+per-layer subtree: ``norm1`` plus ``attn``, ``norm2`` and ``mlp`` or
+``moe`` (attention), ``block`` (mamba2, mlstm, slstm) or ``down``
+(shared attention).  The reference's public functions are thin functions
+over it:
 
   init_params(cfg, generator, device)           -> CausalLM
   forward(params, cfg, batch, ...)              -> (logits, aux) (prefill)
@@ -15,16 +20,17 @@ functions are thin functions over it:
   decode_step(params, cfg, tokens, state)       -> (logits, new state)
 
 ``attention_impl="kernel"`` (the default, the reference's ``"pallas"``)
-sends every attention through K6 and every RMSNorm through K5: kernels on
-a CUDA tensor, their plain versions on a CPU tensor.
-``attention_impl="reference"`` runs the reference model's own arithmetic
-with no kernel: :func:`attention.gqa_attention` and the plain RMSNorm.
-Decoding always normalises through K5; its one-token attention is plain
-torch, as in the reference.  Training (:func:`loss_fn`) always takes the
-reference's arithmetic, as the reference's train steps do: the kernels
-have no backward.  Parameters are built with ``requires_grad=False``; a
-trainer turns it on.  MoE, MLA, SSM, shared-attention, encoder, vision
-and M-RoPE models raise NotImplementedError (ROADMAP A14).
+sends every attention through K6 and every RMSNorm, the SSM blocks' gated
+norm included, through K5: kernels on a CUDA tensor, their plain
+versions on a CPU tensor.  ``attention_impl="reference"`` runs the
+reference model's own arithmetic with no kernel: :func:`attention.
+gqa_attention` and the plain RMSNorm.  Decoding always normalises through
+K5; its one-token attention is plain torch, as in the reference.
+Training (:func:`loss_fn`) always takes the reference's arithmetic, as the
+reference's train steps do: the kernels have no backward.  Parameters are
+built with ``requires_grad=False``; a trainer turns it on.  MLA,
+cross-attention, the audio encoder, vision inputs, M-RoPE and learned
+positions raise NotImplementedError (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -41,8 +47,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (_dense_init, apply_mlp, apply_norm,
                                        init_embedding, init_mlp, init_norm)
+from repro_torch.models.moe import init_moe, moe_forward
 
 
 # ---------------------------------------------------------------------------
@@ -91,10 +99,8 @@ def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     missing = []
     for spec in layer_plan(cfg):
-        if spec.kind != "attn":
-            missing.append(f"{spec.kind} blocks")
-        if spec.moe:
-            missing.append("MoE")
+        if spec.kind == "mla":
+            missing.append("MLA")
         if spec.cross:
             missing.append("cross-attention")
     if cfg.encoder_layers:
@@ -115,22 +121,67 @@ def check_supported(cfg: ArchConfig) -> None:
 # Modules
 # ---------------------------------------------------------------------------
 
-def _pdict(tensors) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tensors.items()})
+def _pdict(tree) -> nn.ParameterDict:
+    """A (nested) dict of tensors -> ``nn.ParameterDict``s of the same
+    keys; parameters do not require gradients."""
+    return nn.ParameterDict({
+        k: _pdict(v) if isinstance(v, dict)
+        else nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
 
 
-class AttnBlock(nn.Module):
-    """Pre-norm block: attention, then the MLP, each added to the stream."""
+SSM_INIT = {"mamba2": ssm_mod.init_mamba2, "mlstm": ssm_mod.init_mlstm,
+            "slstm": ssm_mod.init_slstm}
+SSM_FORWARD = {"mamba2": ssm_mod.mamba2_forward,
+               "mlstm": ssm_mod.mlstm_forward,
+               "slstm": ssm_mod.slstm_forward}
+SSM_STEP = {"mamba2": ssm_mod.mamba2_step, "mlstm": ssm_mod.mlstm_step,
+            "slstm": ssm_mod.slstm_step}
+
+
+class Block(nn.Module):
+    """One layer of the plan, the reference's per-layer subtree:
+    ``norm1``, then by kind ``attn``, ``norm2`` and ``mlp`` or ``moe``
+    (attention), ``block`` (an SSM block) or ``down`` (a shared-attention
+    layer, whose attention weights are the model's ``shared_attn``).
+    ``parts`` names them."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, gen, dtype, device):
         super().__init__()
         self.spec = spec
         self.norm1 = _pdict(init_norm(cfg.norm, cfg.d_model, dtype, device))
-        self.attn = _pdict(attn.init_gqa(gen, cfg, dtype, device))
-        self.norm2 = _pdict(init_norm(cfg.norm, cfg.d_model, dtype, device))
-        self.mlp = _pdict(init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                                   dtype, device))
+        if spec.kind == "attn":
+            self.attn = _pdict(attn.init_gqa(gen, cfg, dtype, device))
+            self.norm2 = _pdict(init_norm(cfg.norm, cfg.d_model, dtype,
+                                          device))
+            if spec.moe:
+                self.moe = _pdict(init_moe(gen, cfg, dtype, device))
+            else:
+                self.mlp = _pdict(init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                           cfg.mlp_kind, dtype, device))
+            self.parts = ("norm1", "attn", "norm2",
+                          "moe" if spec.moe else "mlp")
+        elif spec.kind in SSM_INIT:
+            self.block = _pdict(SSM_INIT[spec.kind](gen, cfg, dtype, device))
+            self.parts = ("norm1", "block")
+        elif spec.kind == "shared_attn":
+            self.down = nn.Parameter(
+                _dense_init(gen, (cfg.d_model, cfg.d_model), dtype, device),
+                requires_grad=False)
+            self.parts = ("norm1", "down")
+        else:
+            raise ValueError(spec.kind)
+
+
+def init_shared_attn(gen, cfg: ArchConfig, dtype, device):
+    """zamba2's shared block: concat(h, h0) -> proj -> attn -> mlp."""
+    return {
+        "w_concat": _dense_init(gen, (2 * cfg.d_model, cfg.d_model), dtype,
+                                device),
+        "attn": attn.init_gqa(gen, cfg, dtype, device),
+        "norm2": init_norm(cfg.norm, cfg.d_model, dtype, device),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype,
+                        device),
+    }
 
 
 class CausalLM(nn.Module):
@@ -147,9 +198,12 @@ class CausalLM(nn.Module):
             self.lm_head = nn.Parameter(
                 _dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
                             device), requires_grad=False)
+        plan = layer_plan(cfg)
+        if any(spec.kind == "shared_attn" for spec in plan):
+            self.shared_attn = _pdict(init_shared_attn(gen, cfg, dtype,
+                                                       device))
         self.blocks = nn.ModuleList(
-            AttnBlock(cfg, spec, gen, dtype, device)
-            for spec in layer_plan(cfg))
+            Block(cfg, spec, gen, dtype, device) for spec in plan)
 
 
 def init_params(cfg: ArchConfig, generator=None,
@@ -169,16 +223,35 @@ def init_params(cfg: ArchConfig, generator=None,
 # Prefill
 # ---------------------------------------------------------------------------
 
-def _apply_block(p: AttnBlock, cfg: ArchConfig, h, *, positions,
-                 attention_impl="kernel"):
-    """Full-sequence (train / prefill) block application."""
+def _apply_block(p: Block, cfg: ArchConfig, h, *, positions, h0=None,
+                 shared=None, attention_impl="kernel"):
+    """Full-sequence (train / prefill) block application.  Returns
+    (h, aux); ``h0`` is the embedding output and ``shared`` the model's
+    ``shared_attn``, both read by a shared-attention layer."""
     use_kernel = attention_impl == "kernel"
+    kind = p.spec.kind
+    aux = {}
     x = apply_norm(cfg.norm, p.norm1, h, use_kernel)
-    h = h + attn.gqa_forward(p.attn, cfg, x, positions,
-                             window=p.spec.window,
-                             attention_impl=attention_impl)
-    x2 = apply_norm(cfg.norm, p.norm2, h, use_kernel)
-    return h + apply_mlp(p.mlp, x2, cfg.mlp_kind)
+    if kind == "attn":
+        h = h + attn.gqa_forward(p.attn, cfg, x, positions,
+                                 window=p.spec.window,
+                                 attention_impl=attention_impl)
+        x2 = apply_norm(cfg.norm, p.norm2, h, use_kernel)
+        if p.spec.moe:
+            y2, aux = moe_forward(p.moe, cfg, x2)
+        else:
+            y2 = apply_mlp(p.mlp, x2, cfg.mlp_kind)
+        h = h + y2
+    elif kind in SSM_FORWARD:
+        h = h + SSM_FORWARD[kind](p.block, cfg, x, use_kernel=use_kernel)
+    elif kind == "shared_attn":
+        z = torch.cat([x, h0], dim=-1) @ shared["w_concat"]
+        z = z + attn.gqa_forward(shared["attn"], cfg, z, positions,
+                                 attention_impl=attention_impl)
+        z2 = apply_norm(cfg.norm, shared["norm2"], z, use_kernel)
+        z = z + apply_mlp(shared["mlp"], z2, cfg.mlp_kind)
+        h = h + z @ p.down
+    return h, aux
 
 
 def _embed_inputs(params: CausalLM, cfg: ArchConfig, batch):
@@ -203,44 +276,51 @@ class _GradCast(torch.autograd.Function):
 
 
 def grad_cast(tree):
-    """Identity whose cotangent is cast to the primal's type, over a dict
-    (or ``ParameterDict``) of tensors: the reference applies it to each
-    layer's parameters so that mixed-precision internals never hand a
-    float32 weight gradient to the reduction."""
-    return {k: _GradCast.apply(v) for k, v in tree.items()}
+    """Identity whose cotangent is cast to the primal's type, over a
+    tensor or a (nested) dict or ``ParameterDict`` of tensors: the
+    reference applies it to each layer's parameters so that
+    mixed-precision internals never hand a float32 weight gradient to the
+    reduction."""
+    if isinstance(tree, torch.Tensor):
+        return _GradCast.apply(tree)
+    return {k: grad_cast(v) for k, v in tree.items()}
 
 
-def _cast_block(block: AttnBlock):
+def _cast_block(block: Block):
     return types.SimpleNamespace(
         spec=block.spec, **{part: grad_cast(getattr(block, part))
-                            for part in ("norm1", "attn", "norm2", "mlp")})
+                            for part in block.parts})
 
 
 def forward_hidden(params: CausalLM, cfg: ArchConfig, batch, *,
                    remat=False, attention_impl="kernel"):
-    """Train / prefill trunk.  Returns (final-norm hidden states, aux).
+    """Train / prefill trunk.  Returns (final-norm hidden states, aux):
+    ``aux["load_balance_loss"]`` sums the MoE layers' (0 without MoE).
 
     When a backward pass can follow (gradients enabled, a parameter that
     requires them) each layer's parameters pass through :func:`grad_cast`;
     ``remat=True`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``), so only layer inputs are kept."""
     h, positions = _embed_inputs(params, cfg, batch)
+    h0 = h
+    shared = getattr(params, "shared_attn", None)
     training = torch.is_grad_enabled() and any(
         p.requires_grad for p in params.parameters())
+    lb = torch.zeros((), dtype=torch.float32, device=h.device)
     for block in params.blocks:
         p = _cast_block(block) if training else block
+        kw = dict(positions=positions, h0=h0, shared=shared,
+                  attention_impl=attention_impl)
         if remat:
-            h = checkpoint(_apply_block, p, cfg, h, positions=positions,
-                           attention_impl=attention_impl,
-                           use_reentrant=False)
+            h, aux = checkpoint(_apply_block, p, cfg, h, use_reentrant=False,
+                                **kw)
         else:
-            h = _apply_block(p, cfg, h, positions=positions,
-                             attention_impl=attention_impl)
+            h, aux = _apply_block(p, cfg, h, **kw)
+        if "load_balance_loss" in aux:
+            lb = lb + aux["load_balance_loss"]
     h = apply_norm(cfg.norm, params.final_norm, h,
                    attention_impl == "kernel")
-    aux = {"load_balance_loss": torch.zeros((), dtype=torch.float32,
-                                            device=h.device)}
-    return h, aux
+    return h, {"load_balance_loss": lb}
 
 
 def project_logits(params: CausalLM, cfg: ArchConfig, h):
@@ -344,29 +424,75 @@ def loss_fn(params: CausalLM, cfg: ArchConfig, batch, *, remat=False,
 # Decode
 # ---------------------------------------------------------------------------
 
+def _init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch, max_len,
+                      dtype, device):
+    if spec.kind == "attn":
+        return attn.init_kv_cache(cfg, batch, max_len, dtype,
+                                  window=spec.window, device=device)
+    if spec.kind == "shared_attn":
+        return attn.init_kv_cache(cfg, batch, max_len, dtype, device=device)
+    if spec.kind == "mamba2":
+        return ssm_mod.init_mamba2_state(cfg, batch, dtype, device)
+    if spec.kind == "mlstm":
+        return ssm_mod.init_mlstm_state(cfg, batch, dtype, device)
+    if spec.kind == "slstm":
+        return ssm_mod.init_slstm_state(cfg, batch, dtype, device)
+    raise ValueError(spec.kind)
+
+
 def init_decode_state(cfg: ArchConfig, batch, max_len, dtype=None,
                       device=DEFAULT_DEVICE):
-    """One KV cache per layer (a ring of ``window`` slots on a sliding
-    window layer) and the next absolute position."""
+    """One cache per layer: a KV cache for an attention layer (a ring of
+    ``window`` slots on a sliding-window layer; a shared-attention layer
+    has its own, although its weights are shared), a constant-size state
+    for an SSM layer; and the next absolute position."""
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
-    caches = [attn.init_kv_cache(cfg, batch, max_len, dtype,
-                                 window=spec.window, device=dev)
+    caches = [_init_block_cache(cfg, spec, batch, max_len, dtype, dev)
               for spec in layer_plan(cfg)]
     return {"caches": caches, "position": 0}
 
 
-def decode_step(params: CausalLM, cfg: ArchConfig, tokens, state):
-    """tokens: (B, 1) -> (logits (B, 1, V) float32, new state).  The caches
-    of ``state`` are updated in place; the new state holds them."""
-    h = F.embedding(tokens, params.embed["table"])
-    position = state["position"]
-    for block, cache in zip(params.blocks, state["caches"]):
-        x = apply_norm(cfg.norm, block.norm1, h)
-        y, _ = attn.gqa_decode(block.attn, cfg, x, cache, position)
+def _decode_block(p: Block, cfg: ArchConfig, h, cache, *, position, h0,
+                  shared):
+    """One-token decode through a block.  Returns (h, new cache)."""
+    kind = p.spec.kind
+    x = apply_norm(cfg.norm, p.norm1, h)
+    if kind == "attn":
+        y, cache = attn.gqa_decode(p.attn, cfg, x, cache, position)
         h = h + y
-        x2 = apply_norm(cfg.norm, block.norm2, h)
-        h = h + apply_mlp(block.mlp, x2, cfg.mlp_kind)
+        x2 = apply_norm(cfg.norm, p.norm2, h)
+        if p.spec.moe:
+            y2, _ = moe_forward(p.moe, cfg, x2, dropless=True)
+        else:
+            y2 = apply_mlp(p.mlp, x2, cfg.mlp_kind)
+        h = h + y2
+    elif kind in SSM_STEP:
+        y, cache = SSM_STEP[kind](p.block, cfg, x, cache)
+        h = h + y
+    elif kind == "shared_attn":
+        z = torch.cat([x, h0], dim=-1) @ shared["w_concat"]
+        y, cache = attn.gqa_decode(shared["attn"], cfg, z, cache, position)
+        z = z + y
+        z2 = apply_norm(cfg.norm, shared["norm2"], z)
+        z = z + apply_mlp(shared["mlp"], z2, cfg.mlp_kind)
+        h = h + z @ p.down
+    return h, cache
+
+
+def decode_step(params: CausalLM, cfg: ArchConfig, tokens, state):
+    """tokens: (B, 1) -> (logits (B, 1, V) float32, new state).  KV caches
+    are updated in place; SSM layers get new states in the new state's
+    list."""
+    h = F.embedding(tokens, params.embed["table"])
+    h0 = h
+    shared = getattr(params, "shared_attn", None)
+    position = state["position"]
+    caches = []
+    for block, cache in zip(params.blocks, state["caches"]):
+        h, cache = _decode_block(block, cfg, h, cache, position=position,
+                                 h0=h0, shared=shared)
+        caches.append(cache)
     h = apply_norm(cfg.norm, params.final_norm, h)
-    return project_logits(params, cfg, h), {"caches": state["caches"],
+    return project_logits(params, cfg, h), {"caches": caches,
                                             "position": position + 1}

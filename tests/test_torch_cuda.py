@@ -820,3 +820,112 @@ def test_traced_sweep_on_the_card(cuda_device, tmp_path):
                    and x["ts"] + x["dur"] <= b["ts"] + b["dur"] + 1e-3
                    for x in executes)
     assert trace.phase_breakdown(events, root="sweep")["coverage"] >= 0.95
+
+
+# K6 at the families' shapes, cut to 512 rows: zamba2's shared attention
+# (32:32, D = 64) and arctic's GQA 56:8 (a group of 7, D = 128)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,KV,D", [(32, 32, 64), (56, 8, 128)])
+def test_flash_attention_at_family_shapes(H, KV, D, dtype, cuda_device):
+    kernels.reset_launch_counts()
+    g = torch.Generator(device=cuda_device).manual_seed(H + D)
+    q, k, v = (torch.randn(2, 512, n, D, device=cuda_device,
+                           generator=g).to(dtype) for n in (H, KV, KV))
+    a = kfa.flash_attention(q, k, v, True, 0).float()
+    b = kfa.attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), True, 0).transpose(1, 2)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert bool(((a - b.float()).abs() <= tol + tol * b.float().abs()).all())
+    assert kernels.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gated_norm_through_k5(dtype, cuda_device):
+    """The SSM blocks' gated norm: through K5 on the card (one launch)
+    and through K5's plain version, within K5's own tolerances."""
+    from repro_torch.models import ssm
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    x, z = (torch.randn(4, 256, 4096, device=cuda_device,
+                        generator=g).to(dtype) for _ in range(2))
+    scale = torch.randn(4096, device=cuda_device, generator=g).to(dtype)
+    kernels.reset_launch_counts()
+    a = ssm._gated_rmsnorm(x, z, scale, use_kernel=True).float()
+    assert kernels.launch_counts()["rmsnorm"] == 1
+    b = ssm._gated_rmsnorm(x, z, scale, use_kernel=False).float()
+    assert kernels.launch_counts()["rmsnorm"] == 1
+    bound = (1e-6 + 1e-7 * b.abs() if dtype == torch.float32
+             else _bf16_ulp(b))
+    assert bool(((a - b).abs() <= bound).all())
+
+
+# per prefill (and per decode step for K5) on the reduced configs:
+# xlstm (mLSTM, sLSTM; LayerNorm elsewhere), zamba2 (Mamba2, shared
+# attention), arctic (2 MoE attention layers)
+REDUCED_FAMILY_LAUNCHES = {"xlstm-350m": (2, 0), "zamba2-1.2b": (5, 1),
+                           "arctic-480b": (5, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(REDUCED_FAMILY_LAUNCHES))
+def test_families_on_the_card_match_the_cpu(arch, cuda_device):
+    """Reduced float32 models from the same weights: the card (K5, K6)
+    against the CPU (plain versions), prefill and decode logits within
+    1e-4, with the predicted K5/K6 launches."""
+    from repro_torch import interop
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    cfg = get_arch(arch).reduced()
+    lm = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    on_card = interop.lm_params(cfg, interop.lm_tree(lm), cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(4))
+    k5, k6 = REDUCED_FAMILY_LAUNCHES[arch]
+    kernels.reset_launch_counts()
+    got, aux = M.forward(on_card, cfg, {"tokens": tokens.to(cuda_device)})
+    assert (kernels.launch_counts()["rmsnorm"],
+            kernels.launch_counts()["flash_attention"]) == (k5, k6)
+    want, want_aux = M.forward(lm, cfg, {"tokens": tokens})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux["load_balance_loss"].cpu(),
+                               want_aux["load_balance_loss"], atol=1e-5,
+                               rtol=1e-5)
+    states = {"cpu": M.init_decode_state(cfg, 2, 48, device="cpu"),
+              "cuda": M.init_decode_state(cfg, 2, 48, device=cuda_device)}
+    kernels.reset_launch_counts()
+    for t in range(8):
+        a, states["cuda"] = M.decode_step(
+            on_card, cfg, tokens[:, t:t + 1].to(cuda_device), states["cuda"])
+        b, states["cpu"] = M.decode_step(lm, cfg, tokens[:, t:t + 1],
+                                         states["cpu"])
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    assert (kernels.launch_counts()["rmsnorm"],
+            kernels.launch_counts()["flash_attention"]) == (8 * k5, 0)
+
+
+@pytest.mark.cuda
+def test_moe_ties_and_drops_on_the_card(cuda_device):
+    """Equal router logits on the card: ties go to the lower experts and
+    the same assignments are dropped as on the CPU."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe
+    cfg = get_arch("arctic-480b").reduced()
+    p = moe.init_moe(torch.Generator().manual_seed(2), cfg, torch.float32,
+                     "cpu")
+    p["router"] = torch.zeros_like(p["router"])
+    x = torch.randn(2, 16, cfg.d_model,
+                    generator=torch.Generator().manual_seed(5))
+    on_card = {k: ({j: w.to(cuda_device) for j, w in v.items()}
+                   if isinstance(v, dict) else v.to(cuda_device))
+               for k, v in p.items()}
+    for dropless in (False, True):
+        want, want_aux = moe.moe_forward(p, cfg, x, dropless=dropless)
+        got, aux = moe.moe_forward(on_card, cfg, x.to(cuda_device),
+                                   dropless=dropless)
+        scale = float(want.pow(2).mean().sqrt())
+        torch.testing.assert_close(got.cpu() / scale, want / scale,
+                                   atol=1e-4, rtol=1e-4)
+        for k in want_aux:
+            torch.testing.assert_close(aux[k].cpu(), want_aux[k], atol=1e-5,
+                                       rtol=1e-5)

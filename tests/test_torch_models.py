@@ -119,9 +119,8 @@ def test_full_gemma3_param_count():
     assert all(p.dtype == torch.bfloat16 for p in lm.parameters())
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "xlstm-350m",
-                                  "whisper-small", "qwen2-vl-72b",
-                                  "arctic-480b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "whisper-small",
+                                  "qwen2-vl-72b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         M.init_params(get_arch(arch).reduced(), device="cpu")

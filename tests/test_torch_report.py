@@ -7,7 +7,10 @@ in their numbers, each held to the ECD-PSGD envelope of 2e-2 (relative
 to the larger of 1 and the value; an integer m_max therefore equal).  A
 second render is served from the port's cache.  The trajectory over the
 repository's ``BENCH_*.json`` gives the same points, verdict and
-markdown."""
+markdown.  Each ``main`` installs its package's process-wide tracer for
+section 6; the fixture puts both tracers back as it found them, so that
+no later test in the worker (the reference's ``/trace`` endpoint test
+among them) serves the reports' spans."""
 
 import os
 import re
@@ -16,8 +19,10 @@ import pytest
 
 from repro.analysis import report as ref_report
 from repro.analysis import trajectory as ref_trajectory
+from repro.telemetry import trace as ref_trace
 from repro_torch.analysis import report, trajectory
 from repro_torch.experiments import cache as artifact_cache
+from repro_torch.telemetry import trace
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 ARGS = ["--quick", "--iters", "40", "--n", "120", "--seeds", "2"]
@@ -29,12 +34,18 @@ _NUMBER = re.compile(r"-?\d+(?:\.\d+)?")
 def reports(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("report")
     out = {}
-    for name, main, extra in (("ref", ref_report.main, []),
-                              ("port", report.main, ["--device", "cpu"])):
-        path = tmp / f"{name}.md"
-        assert main(ARGS + extra + ["--out", str(path), "--cache-dir",
-                                    str(tmp / f"{name}_cache")]) == 0
-        out[name] = path.read_text()
+    tracers = {mod: (mod._ACTIVE, mod._LAST) for mod in (ref_trace, trace)}
+    try:
+        for name, main, extra in (("ref", ref_report.main, []),
+                                  ("port", report.main,
+                                   ["--device", "cpu"])):
+            path = tmp / f"{name}.md"
+            assert main(ARGS + extra + ["--out", str(path), "--cache-dir",
+                                        str(tmp / f"{name}_cache")]) == 0
+            out[name] = path.read_text()
+    finally:
+        for mod, (active, last) in tracers.items():
+            mod._ACTIVE, mod._LAST = active, last
     out["tmp"] = tmp
     return out
 
