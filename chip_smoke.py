@@ -23,8 +23,9 @@
    and (K5, K6) the time of the one PyTorch call that computes the same
    function are measured at the main path's shape (CUDA-graph replays
    timed with CUDA events); K5 also at a decode step's 4 rows and at
-   phase families' 8192 rows of 2048, 4096 and 7168, K6 also at (4, 32,
-   2048, 64) and at (4, 56, 2048, 128) against (4, 8, 2048, 128); K2 at the
+   phase families' 8192 rows of 2048, 4096, 7168, 5120 and 8192, K6 also
+   at (4, 32, 2048, 64) and at (4, 56, 2048, 128) and (4, 64, 2048, 128)
+   against (4, 8, 2048, 128); K2 at the
    main path's six shapes, at (1, 4000, 400) and at the six shapes the
    other specs give it, beside an empty kernel's time (the launch floor);
    K1 as the path calls it, from one input, beside ``torch.count_nonzero``,
@@ -118,22 +119,27 @@
    logits at each of 1100 positions against token-by-token decoding
    within 5e-4.
 6b. Phase families: gemma3-1b is freed (the bytes still allocated are
-   printed), then xlstm-350m and zamba2-1.2b at full width and depth and
-   arctic-480b at full width and 2 layers (its 35 do not fit) are served
-   in bfloat16 from seed 0 as in phase 5, one after another: K5 and K6
-   must launch exactly ``FAMILIES``' counts per prefill (xlstm 24 and 0,
-   zamba2 77 and 6, arctic 5 and 2), K5 as often per decode step and K6
-   never (41 steps a run).  Prefill ms, decode ms per token, peak GB and
-   one profiled prefill (device activity only) per family; the kernel
+   printed), then xlstm-350m and zamba2-1.2b at full width and depth,
+   arctic-480b at full width and 2 layers (its 35 do not fit),
+   qwen1.5-110b at full width and 4 layers and deepseek-v2-236b at full
+   width and 7 layers (the dense layer and 6 MoE layers of 160 experts)
+   are served in bfloat16 from seed 0 as in phase 5, one after another:
+   K5 and K6 must launch exactly ``FAMILIES``' counts per prefill (xlstm
+   24 and 0, zamba2 77 and 6, arctic 5 and 2, qwen1.5 9 and 4, deepseek
+   15 and 0: MLA attention is plain, as in the reference), K5 as often
+   per decode step and K6 never (41 steps a run).  Prefill ms, decode
+   ms per token, peak GB and one profiled prefill per family; the kernel
    prefill against the no-kernel prefill in bfloat16 (relative L2,
    printed: at random weights zamba2's depth and arctic's top-2 routing
    amplify an ulp past 2e-2, see ``run_families``).  Checks: (a) each
    kernel prefill against the no-kernel prefill in float32 at the served
-   width (arctic at 1 layer) within 2e-2 relative L2; (b) in float32,
-   prefill logits against token-by-token
+   width (arctic at 1 layer, qwen1.5 and deepseek at 2) within 2e-2
+   relative L2; (b) in float32, prefill logits against token-by-token
    decoding within 5e-4 at each of 256 positions, on xlstm at 8 layers,
-   zamba2 at 6 and arctic at full width, 1 layer, 8 experts and capacity
-   factor 8; (c) the three reduced configs in float32 from the same
+   zamba2 at 6, arctic at full width, 1 layer, 8 experts and capacity
+   factor 8, qwen1.5 at 2 layers and deepseek at 2 layers, 8 experts and
+   capacity factor 8 (MLA's absorbed decode against its decompressed
+   prefill); (c) the five reduced configs in float32 from the same
    weights on the card and the CPU, logits within 1e-4.
 7. Phase train: ``launch.train.train_loop`` at full-width gemma3-1b in
    bfloat16 on the card (AdamW, lr 3e-4, every layer recomputed in the
@@ -145,6 +151,12 @@
    flops (``launch.analytic``) as a share of the bf16 peak and the peak
    memory; the loss must fall (the mean of the last three steps below the
    first).  One more sync step runs under ``torch.profiler``.
+7b. Phase train-families: ``train_loop`` at full-width, full-depth
+   zamba2-1.2b and xlstm-350m in bfloat16 (AdamW, lr 3e-4, every layer
+   recomputed in the backward), 5 sync steps each of 4 x 1024
+   ``hmm_stream`` tokens, the counters set to 0 just before and read
+   just after: no kernel may launch and the loss must fall.  Per family
+   the same numbers as phase train and one profiled step.
 8. Phase gossip: ``train.steps.make_gossip_step`` at full-width gemma3-1b
    with 2 replicas stacked on the card, 4 steps on one fixed hmm_stream
    batch of 8 x 1024 tokens (4 x 1024 a replica) at lr 2e-3, the
@@ -158,7 +170,9 @@
    leaf (2 x 301989888) and one segment leaf (2 x 39813120).
 9. Phase train-vs-cpu: reduced gemma3-1b in float32 from the same weights
    on the card and the CPU: 5 sync and 5 stale steps (losses within 1e-4
-   relative), 3 gossip steps at R = 4 (within 1e-3).
+   relative), 3 gossip steps at R = 4 (within 1e-3); and one sync step's
+   loss and every gradient leaf of reduced zamba2-1.2b and xlstm-350m
+   (within 1e-4 relative, a leaf to its largest magnitude).
 10. Prints one JSON line with each kernel's numbers (the sweep kernels'
    launches also per spec, per report spec and in all for the report,
    and per service path, K3/K4's per path, their
@@ -198,20 +212,30 @@ SERVE_KERNELS = ("rmsnorm", "flash_attention")
 # attention layer, the final norm) and each SSM block's gated norm;
 # xlstm normalises with LayerNorm elsewhere.  K6: one per attention or
 # shared-attention layer.
+# MLA attention is plain torch under both implementations, as in the
+# reference, so deepseek-v2 launches no K6.
 FAMILIES = (("xlstm-350m", None, 24, 0),      # 21 mLSTM + 3 sLSTM gated
             ("zamba2-1.2b", None, 77, 6),     # 38 + 6 + 1 + 32 gated
-            ("arctic-480b", 2, 5, 2))         # 2 * 2 + 1
+            ("arctic-480b", 2, 5, 2),         # 2 * 2 + 1
+            ("qwen1.5-110b", 4, 9, 4),        # 2 * 4 + 1
+            ("deepseek-v2-236b", 7, 15, 0))   # 2 * 7 + 1: dense + 6 MoE
 # layers of check (a)'s float32 models (None: all): arctic's 128 experts
-# hold one layer in float32 on one card (56 GB)
+# hold one layer in float32 on one card (56 GB); qwen1.5-110b and
+# deepseek-v2 (its dense layer and one MoE layer with all 160 experts)
+# hold two (about 21 GB each)
 FAMILY_CHECK_LAYERS = {"xlstm-350m": None, "zamba2-1.2b": None,
-                       "arctic-480b": 1}
+                       "arctic-480b": 1, "qwen1.5-110b": 2,
+                       "deepseek-v2-236b": 2}
 FAMILY_STEPS = 16 + 24          # decode steps of a run: prompt + generated
 # K5 at the families' prefill widths (8192 rows): zamba2's norms and
-# xlstm's mLSTM gated norm, zamba2's gated norm, arctic's norms
-K5_FAMILY_SHAPES = ((8192, 2048), (8192, 4096), (8192, 7168))
+# xlstm's mLSTM gated norm, zamba2's gated norm, arctic's norms,
+# deepseek-v2's norms, qwen1.5-110b's norms
+K5_FAMILY_SHAPES = ((8192, 2048), (8192, 4096), (8192, 7168), (8192, 5120),
+                    (8192, 8192))
 # K6 at the families' prefill shapes (B, H, KV, S, D): zamba2's shared
-# attention and arctic's GQA 56:8
-K6_FAMILY_SHAPES = ((4, 32, 32, 2048, 64), (4, 56, 8, 2048, 128))
+# attention, arctic's GQA 56:8, qwen1.5-110b's GQA 64:8
+K6_FAMILY_SHAPES = ((4, 32, 32, 2048, 64), (4, 56, 8, 2048, 128),
+                    (4, 64, 8, 2048, 128))
 
 
 def _fail(msg: str) -> int:
@@ -341,6 +365,19 @@ def time_l0(dev, kc, metrics):
     return {"l0_shift_sum": shift, "row_l0": rows}
 
 
+def _device_spans(prof):
+    """(name, start µs, end µs) of each device kernel, copy and fill of a
+    finished ``torch.profiler`` window, in order of start, read from the
+    profiler's raw events: building its event tree for a window of some
+    10^5 kernels would cost more than the window itself."""
+    import torch
+    return sorted(((e.name(), e.start_ns() / 1e3,
+                    (e.start_ns() + e.duration_ns()) / 1e3)
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and e.duration_ns() > 0), key=lambda s: s[1])
+
+
 def _kernels_per_call(fn):
     """Device kernels and copies or fills of one ``fn()`` after a warm-up,
     under ``torch.profiler``: [kernel names], copies."""
@@ -351,8 +388,7 @@ def _kernels_per_call(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [name for name, _, _ in _device_spans(prof)]
     copies = [n for n in names if n.startswith(("Memcpy", "Memset"))]
     return {"kernels": len(names) - len(copies), "copies": len(copies),
             "names": [n[:80] for n in names]}
@@ -709,7 +745,8 @@ def check_lm_kernels(dev):
               for B, H, KV, S, D in K6_FAMILY_SHAPES]
     cases += [(c, torch.float32) for c in
               [(1, 256, 32, 32, 64, 0), (1, 256, 56, 8, 128, 0),
-               (2, 40, 4, 4, 64, 0), (2, 40, 4, 1, 64, 0)]]
+               (1, 256, 64, 8, 128, 0), (2, 40, 4, 4, 64, 0),
+               (2, 40, 4, 1, 64, 0)]]
     err_by_dtype = {"float32": 0.0, "bfloat16": 0.0}
     for (B, S, H, KV, D, window), dtype in cases:
         q = randn(B, S, H, D, dtype=dtype)
@@ -846,29 +883,23 @@ def run_serve(dev):
     return report, launches, params, batch, logits
 
 
-def _profile(fn, top: int = 10, cpu: bool = True):
-    """``fn()`` under ``torch.profiler``: the ``top`` device kernels by
-    total time, the device's busy share of the window (the union of kernel
-    intervals over the window's wall time, host clock around work that
-    ends in a synchronise), and the count of device kernels and of copies
-    and fills.  ``cpu=False`` records device activity only (a window of
-    some 10^5 launches parses in a fraction of the time).  Returns "not
-    measured" when the trace holds no device time."""
+def _profile(fn, top: int = 10):
+    """``fn()`` under ``torch.profiler``, recording device activity only:
+    the ``top`` device kernels by total time, the device's busy share of
+    the window (the union of kernel intervals over the window's wall
+    time, host clock around work that ends in a synchronise), and the
+    count of device kernels and of copies and fills (``_device_spans``).
+    Returns "not measured" when the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
-                                            else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = [(e.name, e.time_range.start, e.time_range.end)
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and e.time_range.end > e.time_range.start]
+    spans = _device_spans(prof)
     if not spans:
         return "not measured"
     by_name = {}
@@ -877,7 +908,7 @@ def _profile(fn, top: int = 10, cpu: bool = True):
         by_name[name] = (total + end - start, count + 1)
     busy = 0.0
     cur_start = cur_end = None
-    for _, start, end in sorted(spans, key=lambda s: s[1]):
+    for _, start, end in spans:
         if cur_end is None or start > cur_end:
             if cur_end is not None:
                 busy += cur_end - cur_start
@@ -1023,15 +1054,16 @@ def check_serve(dev, params, batch, logits):
 
 
 def run_families(dev):
-    """Phase families: xlstm-350m and zamba2-1.2b at full width and depth
-    and arctic-480b at full width and 2 layers, bfloat16, random weights
-    from seed 0.  For each: a prefill of 4 x 2048 tokens through
+    """Phase families: xlstm-350m and zamba2-1.2b at full width and depth,
+    arctic-480b at full width and 2 layers, qwen1.5-110b at 4 and
+    deepseek-v2-236b at 7 (its dense layer and 6 MoE layers), bfloat16,
+    random weights from seed 0.  For each: a prefill of 4 x 2048 tokens through
     ``make_prefill_step``, then ``greedy_generate`` of 24 tokens for 4
     requests of 16 prompt tokens, with the counters set to 0 just before
     and read after the prefill and after the run: K5 and K6 must launch
     exactly ``FAMILIES``' counts per prefill, K5 as often per decode step,
     K6 never in decoding, no other kernel at all.  One more prefill runs
-    under ``torch.profiler`` (device activity only), and one with no
+    under ``torch.profiler``, and one with no
     kernel (``attention_impl="reference"``): the relative L2 of the two
     prefills' next-token logits in bfloat16 is printed, not checked.
     At random weights neither bfloat16 path is within 2e-2 of the other
@@ -1039,10 +1071,12 @@ def run_families(dev):
     weights: 38 layers amplify bfloat16 rounding) or arctic (a change in
     an ulp flips top-2 choices among 128 experts).  Check (a) is made in
     float32 from seed 0 at the same width (arctic at 1 layer, all 128
+    experts; qwen1.5-110b and deepseek-v2 at 2, deepseek's with all 160
     experts): the kernel prefill's next-token logits against the
-    no-kernel prefill's within 2e-2 relative L2.  Each model is freed
-    before the next is built.  Returns ({arch: report}, {arch: launches
-    of the run})."""
+    no-kernel prefill's within 2e-2 relative L2.  For deepseek-v2 the two
+    prefills differ only in K5 (MLA attention is plain in both).  Each
+    model is freed before the next is built.  Returns ({arch: report},
+    {arch: launches of the run})."""
     import torch
     from repro_torch import kernels
     from repro_torch.configs.registry import get_arch
@@ -1104,8 +1138,7 @@ def run_families(dev):
                   "max_memory_allocated_gb": peak_gb,
                   "launches_per_prefill": {k: per_prefill[k]
                                            for k in SERVE_KERNELS}}
-        report["profile"] = _profile(lambda: prefill(params, batch),
-                                     cpu=False)
+        report["profile"] = _profile(lambda: prefill(params, batch))
         plain = E.make_prefill_step(cfg, attention_impl="reference")(
             params, batch)
         report["bf16_rel_l2_kernel_vs_plain"] = _rel_l2(logits, plain)
@@ -1145,11 +1178,14 @@ def check_families(dev):
     prefill's logits at every position of a 256-token prompt against
     token-by-token decoding within 5e-4, the reference's own bound, on
     xlstm-350m at 8 layers (7 mLSTM, 1 sLSTM), zamba2-1.2b at 6 (5 Mamba2,
-    1 shared attention) and arctic-480b at full width, 1 layer, 8 experts
+    1 shared attention), arctic-480b at full width, 1 layer, 8 experts
     and capacity factor 8 (no assignment dropped: the reference test's
-    setting).  (c) each reduced config in float32 from the same weights
-    on the card (kernels) and on the CPU (plain versions): logits of a
-    prefill of 2 x 40 tokens and of 40 decode steps within 1e-4, the
+    setting), qwen1.5-110b at 2 layers, and deepseek-v2-236b at 2 (the
+    dense layer and one MoE layer) with 8 experts and capacity factor 8:
+    MLA's absorbed decode against its decompressed prefill.  (c) each
+    reduced config in float32 from the same weights on the card
+    (kernels) and on the CPU (plain versions): logits of a prefill of 2 x
+    40 tokens and of 40 decode steps within 1e-4, the
     load-balance loss within 1e-5 relative."""
     import torch
     from repro_torch import interop
@@ -1158,7 +1194,8 @@ def check_families(dev):
 
     out = {"b_max_abs_diff": {}, "c_max_abs_diff": {}}
     for arch, layers in (("xlstm-350m", 8), ("zamba2-1.2b", 6),
-                         ("arctic-480b", 1)):
+                         ("arctic-480b", 1), ("qwen1.5-110b", 2),
+                         ("deepseek-v2-236b", 2)):
         cfg = dataclasses.replace(get_arch(arch), num_layers=layers,
                                   dtype="float32")
         if cfg.moe:
@@ -2033,6 +2070,10 @@ def check_robustness(root):
 # trains on a fixed batch), at the example's lr
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 1024, 3e-4
 TRAIN_STEPS = {"sync": 10, "stale": 5}
+# phase train-families: full-width, full-depth zamba2-1.2b and xlstm-350m,
+# sync steps of 4 x 1024 tokens from hmm_stream
+TRAIN_FAMILIES, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_STEPS = (
+    ("zamba2-1.2b", "xlstm-350m"), 4, 5)
 GOSSIP_REPLICAS, GOSSIP_BATCH, GOSSIP_SEQ, GOSSIP_STEPS = 2, 8, 1024, 4
 GOSSIP_LR = 2e-3
 # K3/K4 at the gossip step's largest leaf (the tied embedding, 262144 x
@@ -2111,6 +2152,74 @@ def run_train(dev):
             del state, step, batch
         del params
     return report, prof
+
+
+def run_train_families(dev):
+    """Phase train-families: ``train_loop`` at full-width, full-depth
+    zamba2-1.2b and xlstm-350m (bf16, AdamW, every layer recomputed in
+    the backward), ``TRAIN_FAMILY_STEPS`` sync steps each on hmm_stream
+    batches of ``TRAIN_FAMILY_BATCH`` x 1024 tokens, with the counters set
+    to 0 just before and read just after: training takes the reference's
+    arithmetic, so no kernel may launch, and the loss must fall.  Per
+    family: losses, each step's wall ms, the median after the first step,
+    tokens/s, the model flops' share of the bf16 peak, the peak memory,
+    and one more sync step under ``torch.profiler`` (xlstm's sLSTM token
+    loop makes some 10^5 launches a step)."""
+    import statistics
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.lm import LMConfig, hmm_stream
+    from repro_torch.launch import analytic
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import steps as S
+
+    report = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = get_arch(arch)
+        flops = analytic.model_flops(cfg, InputShape(
+            "train", TRAIN_SEQ, TRAIN_FAMILY_BATCH, "train"))["model_flops"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        params, losses, step_ms = train_loop(
+            cfg, steps=TRAIN_FAMILY_STEPS, batch_size=TRAIN_FAMILY_BATCH,
+            seq_len=TRAIN_SEQ, lr=TRAIN_LR, strategy="sync",
+            log_every=TRAIN_FAMILY_STEPS, device=dev)
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if any(launches.values()):
+            raise AssertionError(f"{arch}: the train path launched kernels: "
+                                 f"{launches}")
+        if not _falls(losses):
+            raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+        med = statistics.median(step_ms[1:])
+        state = S.init_train_state(cfg, "sync", params=params)
+        del params
+        step = S.make_train_step(cfg, lr=TRAIN_LR)
+        batch = next(hmm_stream(R.PRNGKey(1), LMConfig(
+            cfg.vocab_size, TRAIN_SEQ, TRAIN_FAMILY_BATCH), 1, device=dev))
+        prof = _profile(lambda: step(state, batch)[1]["loss"].item())
+        report[arch] = {
+            "layers": cfg.num_layers,
+            "params": sum(p.numel() for p in state["model"].parameters()),
+            "steps": TRAIN_FAMILY_STEPS,
+            "batch": [TRAIN_FAMILY_BATCH, TRAIN_SEQ], "lr": TRAIN_LR,
+            "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+            "tokens_per_s": TRAIN_FAMILY_BATCH * TRAIN_SEQ / (med / 1e3),
+            "model_flops": flops,
+            "bf16_peak_share": flops / (med / 1e3) / BF16_TENSOR_OPS_PER_S,
+            "max_memory_allocated_gb": peak, "launches": launches,
+            "profile": prof}
+        del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
 
 
 def _draw_ms(dev, shapes, replicas):
@@ -2211,7 +2320,12 @@ def check_train_against_cpu(dev):
     """Phase train-vs-cpu: reduced gemma3-1b in float32 (TF32 off) from
     the same weights on the card and on the CPU: five ``train_loop`` steps
     each of sync and stale, loss histories within 1e-4 relative; three
-    gossip steps at R = 4 on one fixed batch, losses within 1e-3."""
+    gossip steps at R = 4 on one fixed batch, losses within 1e-3.  Then
+    reduced zamba2-1.2b and xlstm-350m in float32: one sync step's loss
+    (within 1e-4 relative) and every gradient leaf (within 1e-4 of the
+    CPU leaf's largest magnitude) from ``train.steps.value_and_grad``, as
+    the train step takes them, card against CPU: the families' training
+    arithmetic, which no phase otherwise holds on the card."""
     import torch
     from repro_torch import interop
     from repro_torch import tree as T
@@ -2257,7 +2371,50 @@ def check_train_against_cpu(dev):
     if not rel <= 1e-3:
         raise AssertionError(f"gossip losses on the card differ from the "
                              f"CPU's by {rel:.3e}: {losses}")
+    for arch in TRAIN_FAMILIES:
+        out[arch] = _family_grads_against_cpu(dev, arch)
     return out
+
+
+def _family_grads_against_cpu(dev, arch):
+    """One sync step's loss and gradients of ``arch``'s reduced config in
+    float32 from the same weights and batch on the card and the CPU:
+    the loss within 1e-4 relative, each gradient leaf within 1e-4 of the
+    CPU leaf's largest magnitude."""
+    import torch
+    from repro_torch import interop
+    from repro_torch import tree as T
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.train import steps as S
+
+    cfg = get_arch(arch).reduced()
+    tree = interop.lm_tree(M.init_params(
+        cfg, torch.Generator().manual_seed(3), "cpu"))
+    g = torch.Generator().manual_seed(6)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    got = {}
+    for name, device in (("cpu", torch.device("cpu")), ("gpu", dev)):
+        lm = interop.lm_params(cfg, T.tree_map(torch.clone, tree), device)
+        for p in lm.parameters():
+            p.requires_grad_(True)
+        loss, _, grads = S.value_and_grad(
+            lm, lambda m, b: M.loss_fn(m, cfg, b, remat=True),
+            {k: v.to(device) for k, v in batch.items()})
+        got[name] = (float(loss), [x.cpu() for x in T.flatten(grads)[0]])
+    (want_l, want_g), (got_l, got_g) = got["cpu"], got["gpu"]
+    loss_rel = abs(got_l - want_l) / abs(want_l)
+    grad_rel = max(float((a - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(got_g, want_g))
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-4):
+        raise AssertionError(
+            f"{arch}: a sync step on the card differs from the CPU's: loss "
+            f"{got_l} vs {want_l} ({loss_rel:.3e}), gradients up to "
+            f"{grad_rel:.3e} of a leaf's largest magnitude")
+    return {"loss": {"gpu": got_l, "cpu": want_l}, "loss_rel": loss_rel,
+            "leaves": len(want_g), "max_grad_rel": grad_rel}
 
 
 def time_quantize_gossip(dev):
@@ -2605,6 +2762,18 @@ def main() -> int:
     for strategy, rep in train.items():
         print(f"  train {strategy} {json.dumps(rep)}", flush=True)
     print(f"  train step profile {json.dumps(train_profile)}", flush=True)
+
+    t0 = time.perf_counter()
+    train_families = run_train_families(dev)
+    print(f"phase train-families: ok in {time.perf_counter() - t0:.2f}s "
+          f"[{card}] {' and '.join(TRAIN_FAMILIES)} bf16 AdamW remat "
+          f"{TRAIN_FAMILY_STEPS} sync steps of "
+          f"{TRAIN_FAMILY_BATCH}x{TRAIN_SEQ}", flush=True)
+    for arch, rep in train_families.items():
+        summary = {k: v for k, v in rep.items() if k != "profile"}
+        print(f"  train-families {arch} {json.dumps(summary)}", flush=True)
+        print(f"  train-families {arch} step profile "
+              f"{json.dumps(rep['profile'])}", flush=True)
 
     t0 = time.perf_counter()
     gossip, gossip_launches = run_gossip(dev)

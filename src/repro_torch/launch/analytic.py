@@ -83,10 +83,15 @@ def model_bytes(cfg: ArchConfig, shape: InputShape, *, opt_bytes=8,
         b = total * param_bytes
     else:
         b = active * param_bytes
-        # KV cache read per decode step (SSM states are not counted)
+        # KV cache read per decode step (SSM states are not counted); MLA
+        # reads its compressed latent and rope key
         for spec in M.layer_plan(cfg):
             if spec.kind in ("attn", "shared_attn"):
                 T = min(spec.window or shape.seq_len, shape.seq_len)
                 b += (2 * shape.global_batch * T * cfg.num_kv_heads
                       * cfg.resolved_head_dim * param_bytes)
+            elif spec.kind == "mla":
+                b += (shape.global_batch * shape.seq_len
+                      * (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim)
+                      * param_bytes)
     return float(b)

@@ -6,9 +6,11 @@ by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced  # full size
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
-      --no-reduced                       # also xlstm-350m; arctic-480b
-                                         # runs reduced (its 35 layers
-                                         # do not fit one card)
+      --no-reduced                       # also xlstm-350m; arctic-480b,
+                                         # qwen1.5-110b and
+                                         # deepseek-v2-236b run reduced
+                                         # (their full depth does not
+                                         # fit one card)
 
 The flags are the reference's (``repro/launch/serve.py``) plus
 ``--device``; ``--reduced`` is on by default and ``--no-reduced`` runs the

@@ -6,6 +6,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --full --steps 10 --batch-size 8 --seq-len 1024 --lr 3e-4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --full --steps 5 --batch-size 4 --seq-len 1024 --lr 3e-4
 
 The flags are the reference's plus ``--device`` (``cuda`` by default; a
 host without a GPU is an error, never a quiet fall-back to the CPU).

@@ -1,8 +1,12 @@
-"""Grouped-query attention with an optional sliding window, and its
-decode-time KV cache (the port of ``repro/models/attention.py``, its GQA
-part; MLA and cross-attention wait, ROADMAP A14).
+"""Grouped-query attention with an optional sliding window, Multi-head
+Latent Attention (DeepSeek-V2), and their decode-time caches (the port of
+``repro/models/attention.py``; cross-attention waits, ROADMAP A14).
 
-Shapes: hidden (B, S, d_model); caches (B, T, kv_heads, head_dim).
+Shapes: hidden (B, S, d_model); caches (B, T, kv_heads, head_dim).  MLA
+caches the *compressed* latent (B, T, kv_lora) and the shared rope key
+(B, T, rope_dim), and decodes in the absorbed-matmul form.  Its prefill
+decompresses keys and values and runs :func:`gqa_attention` under both
+``attention_impl`` values, as the reference does: MLA never reaches K6.
 
 ``attention_impl`` of :func:`gqa_forward`:
   ``"kernel"``     (default) kernel K6 (:mod:`repro_torch.kernels.
@@ -13,8 +17,8 @@ Shapes: hidden (B, S, d_model); caches (B, T, kv_heads, head_dim).
                    arithmetic in torch (softmax weights cast to v's type
                    before P.V, row-chunked above ``Q_CHUNK``).
 
-Unlike the reference, :func:`gqa_decode` writes the new key, value and
-position into its cache in place and returns the same cache.
+Unlike the reference, :func:`gqa_decode` and :func:`mla_decode` write the
+new entries into their cache in place and return the same cache.
 """
 
 from __future__ import annotations
@@ -52,6 +56,23 @@ def init_gqa(gen, cfg: ArchConfig, dtype, device):
     return p
 
 
+def init_mla(gen, cfg: ArchConfig, dtype, device):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    shapes = {
+        "wq_a": (d, m.q_lora_rank),
+        "wq_b": (m.q_lora_rank, h * qk_head),
+        "wkv_a": (d, m.kv_lora_rank),
+        "wk_rope": (d, m.qk_rope_head_dim),
+        "wk_b": (m.kv_lora_rank, h * m.qk_nope_head_dim),
+        "wv_b": (m.kv_lora_rank, h * m.v_head_dim),
+        "wo": (h * m.v_head_dim, d),
+    }
+    return {name: _dense_init(gen, shape, dtype, device)
+            for name, shape in shapes.items()}
+
+
 # ---------------------------------------------------------------------------
 # Masks + core attention math
 # ---------------------------------------------------------------------------
@@ -75,7 +96,7 @@ def _attn_rows(q, k, v, mask, D):
     scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32)
     scores = scores / math.sqrt(D)
     if mask is not None:
-        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        scores = scores.masked_fill(~mask, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhst,bthd->bshd", w.to(v.dtype), v)
 
@@ -201,6 +222,83 @@ def gqa_decode(p, cfg: ArchConfig, x, cache: KVCache, position: int):
         valid = valid & (cache.pos > position - cache.window)
     mask = valid[:, None, None, :]                    # (B,1,1,T)
     out = gqa_attention(q, cache.k, cache.v, mask)    # (B,1,H,D)
+    y = out.reshape(B, 1, -1) @ p["wo"]
+    cache.index += 1
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MLACache:
+    c_kv: torch.Tensor      # (B, T, kv_lora)
+    k_rope: torch.Tensor    # (B, T, rope_dim)
+    index: int = 0          # next write slot
+
+
+def init_mla_cache(cfg: ArchConfig, batch, max_len, dtype, device="cpu"):
+    m = cfg.mla
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                           dtype=dtype, device=device))
+
+
+def _mla_q(p, cfg, x, positions):
+    m, B, S, h = cfg.mla, x.shape[0], x.shape[1], cfg.num_heads
+    q = ((x @ p["wq_a"]) @ p["wq_b"]).reshape(
+        B, S, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(
+        q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_forward(p, cfg: ArchConfig, x, positions):
+    """Prefill MLA: keys and values decompressed from the latent, then
+    :func:`gqa_attention` (KV == H, q/k head dim nope + rope)."""
+    m, B, S, h = cfg.mla, x.shape[0], x.shape[1], cfg.num_heads
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv = x @ p["wkv_a"]
+    k_rope = apply_rope((x @ p["wk_rope"])[:, :, None, :], positions,
+                        cfg.rope_theta)                 # shared by the heads
+    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, h, m.qk_nope_head_dim)
+    v = (c_kv @ p["wv_b"]).reshape(B, S, h, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, h, m.qk_rope_head_dim)],
+                  dim=-1)
+    mask = causal_mask(S, S, device=x.device)[None, None]
+    out = gqa_attention(q, k, v, mask)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def mla_decode(p, cfg: ArchConfig, x, cache: MLACache, position: int):
+    """Absorbed-matmul decode: one token scored against the *compressed*
+    cache.  Writes slot ``index`` of ``cache`` in place and returns
+    ``(y, cache)``.  The two score products are added in x's type and
+    only then cast to float32, as in the reference."""
+    m, B, h = cfg.mla, x.shape[0], cfg.num_heads
+    pos_b = torch.full((B, 1), position, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos_b)           # (B,1,h,.)
+    i = cache.index
+    cache.c_kv[:, i] = (x @ p["wkv_a"])[:, 0]
+    cache.k_rope[:, i] = apply_rope((x @ p["wk_rope"])[:, :, None, :],
+                                    pos_b, cfg.rope_theta)[:, 0, 0]
+    # absorb W_uk into q: (B,1,h,nope) x (r, h*nope) -> (B,1,h,r)
+    wk_b = p["wk_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wk_b)
+    scores = (torch.einsum("bshr,btr->bhst", q_lat, cache.c_kv)
+              + torch.einsum("bshn,btn->bhst", q_rope, cache.k_rope)
+              ).to(torch.float32)
+    scores = scores / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    valid = torch.arange(cache.c_kv.shape[1], device=x.device) <= i
+    scores = scores.masked_fill(~valid, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    lat = torch.einsum("bhst,btr->bshr", w, cache.c_kv)  # (B,1,h,r)
+    wv_b = p["wv_b"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bshr,rhv->bshv", lat, wv_b)
     y = out.reshape(B, 1, -1) @ p["wo"]
     cache.index += 1
     return y, cache

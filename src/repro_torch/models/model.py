@@ -1,6 +1,7 @@
 """The causal LM of every family the port runs (the port of
-``repro/models/model.py``): dense attention, MoE attention (arctic),
-SSM (xLSTM's mLSTM and sLSTM) and hybrid (zamba2: Mamba2 with a shared
+``repro/models/model.py``): dense attention, MoE attention (arctic, and
+deepseek-v2's MLA with shared experts and a dense first layer), SSM
+(xLSTM's mLSTM and sLSTM) and hybrid (zamba2: Mamba2 with a shared
 attention block).
 
 The reference stacks each run of identical layers and scans over it; the
@@ -9,7 +10,7 @@ port keeps one module per layer: :class:`CausalLM` holds ``embed``, a
 when embeddings are not tied and ``shared_attn`` when a layer of the
 plan is a shared-attention layer.  A :class:`Block` holds the reference's
 per-layer subtree: ``norm1`` plus ``attn``, ``norm2`` and ``mlp`` or
-``moe`` (attention), ``block`` (mamba2, mlstm, slstm) or ``down``
+``moe`` (attention or MLA), ``block`` (mamba2, mlstm, slstm) or ``down``
 (shared attention).  The reference's public functions are thin functions
 over it:
 
@@ -20,17 +21,19 @@ over it:
   decode_step(params, cfg, tokens, state)       -> (logits, new state)
 
 ``attention_impl="kernel"`` (the default, the reference's ``"pallas"``)
-sends every attention through K6 and every RMSNorm, the SSM blocks' gated
-norm included, through K5: kernels on a CUDA tensor, their plain
+sends every GQA attention through K6 and every RMSNorm, the SSM blocks'
+gated norm included, through K5: kernels on a CUDA tensor, their plain
 versions on a CPU tensor.  ``attention_impl="reference"`` runs the
 reference model's own arithmetic with no kernel: :func:`attention.
-gqa_attention` and the plain RMSNorm.  Decoding always normalises through
-K5; its one-token attention is plain torch, as in the reference.
+gqa_attention` and the plain RMSNorm.  MLA attention is
+:func:`attention.gqa_attention` under both values, as in the reference.
+Decoding always normalises through K5; its one-token attention is plain
+torch, as in the reference.
 Training (:func:`loss_fn`) always takes the reference's arithmetic, as the
 reference's train steps do: the kernels have no backward.  Parameters are
-built with ``requires_grad=False``; a trainer turns it on.  MLA,
-cross-attention, the audio encoder, vision inputs, M-RoPE and learned
-positions raise NotImplementedError (ROADMAP A14).
+built with ``requires_grad=False``; a trainer turns it on.
+Cross-attention, the audio encoder, vision inputs, M-RoPE and learned
+positions raise NotImplementedError (ROADMAP A14.4, A14.5).
 """
 
 from __future__ import annotations
@@ -99,8 +102,6 @@ def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     missing = []
     for spec in layer_plan(cfg):
-        if spec.kind == "mla":
-            missing.append("MLA")
         if spec.cross:
             missing.append("cross-attention")
     if cfg.encoder_layers:
@@ -114,7 +115,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(sorted(set(missing)))} not ported yet "
-            f"(ROADMAP A14)")
+            f"(ROADMAP A14.4, A14.5)")
 
 
 # ---------------------------------------------------------------------------
@@ -141,16 +142,18 @@ SSM_STEP = {"mamba2": ssm_mod.mamba2_step, "mlstm": ssm_mod.mlstm_step,
 class Block(nn.Module):
     """One layer of the plan, the reference's per-layer subtree:
     ``norm1``, then by kind ``attn``, ``norm2`` and ``mlp`` or ``moe``
-    (attention), ``block`` (an SSM block) or ``down`` (a shared-attention
-    layer, whose attention weights are the model's ``shared_attn``).
+    (attention or MLA), ``block`` (an SSM block) or ``down`` (a
+    shared-attention layer, whose attention weights are the model's
+    ``shared_attn``).
     ``parts`` names them."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, gen, dtype, device):
         super().__init__()
         self.spec = spec
         self.norm1 = _pdict(init_norm(cfg.norm, cfg.d_model, dtype, device))
-        if spec.kind == "attn":
-            self.attn = _pdict(attn.init_gqa(gen, cfg, dtype, device))
+        if spec.kind in ("attn", "mla"):
+            init_attn = attn.init_mla if spec.kind == "mla" else attn.init_gqa
+            self.attn = _pdict(init_attn(gen, cfg, dtype, device))
             self.norm2 = _pdict(init_norm(cfg.norm, cfg.d_model, dtype,
                                           device))
             if spec.moe:
@@ -232,10 +235,13 @@ def _apply_block(p: Block, cfg: ArchConfig, h, *, positions, h0=None,
     kind = p.spec.kind
     aux = {}
     x = apply_norm(cfg.norm, p.norm1, h, use_kernel)
-    if kind == "attn":
-        h = h + attn.gqa_forward(p.attn, cfg, x, positions,
-                                 window=p.spec.window,
-                                 attention_impl=attention_impl)
+    if kind in ("attn", "mla"):
+        if kind == "mla":
+            h = h + attn.mla_forward(p.attn, cfg, x, positions)
+        else:
+            h = h + attn.gqa_forward(p.attn, cfg, x, positions,
+                                     window=p.spec.window,
+                                     attention_impl=attention_impl)
         x2 = apply_norm(cfg.norm, p.norm2, h, use_kernel)
         if p.spec.moe:
             y2, aux = moe_forward(p.moe, cfg, x2)
@@ -431,6 +437,8 @@ def _init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch, max_len,
                                   window=spec.window, device=device)
     if spec.kind == "shared_attn":
         return attn.init_kv_cache(cfg, batch, max_len, dtype, device=device)
+    if spec.kind == "mla":
+        return attn.init_mla_cache(cfg, batch, max_len, dtype, device)
     if spec.kind == "mamba2":
         return ssm_mod.init_mamba2_state(cfg, batch, dtype, device)
     if spec.kind == "mlstm":
@@ -444,7 +452,8 @@ def init_decode_state(cfg: ArchConfig, batch, max_len, dtype=None,
                       device=DEFAULT_DEVICE):
     """One cache per layer: a KV cache for an attention layer (a ring of
     ``window`` slots on a sliding-window layer; a shared-attention layer
-    has its own, although its weights are shared), a constant-size state
+    has its own, although its weights are shared), the compressed latent
+    and rope key for an MLA layer, a constant-size state
     for an SSM layer; and the next absolute position."""
     dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -458,8 +467,9 @@ def _decode_block(p: Block, cfg: ArchConfig, h, cache, *, position, h0,
     """One-token decode through a block.  Returns (h, new cache)."""
     kind = p.spec.kind
     x = apply_norm(cfg.norm, p.norm1, h)
-    if kind == "attn":
-        y, cache = attn.gqa_decode(p.attn, cfg, x, cache, position)
+    if kind in ("attn", "mla"):
+        decode = attn.mla_decode if kind == "mla" else attn.gqa_decode
+        y, cache = decode(p.attn, cfg, x, cache, position)
         h = h + y
         x2 = apply_norm(cfg.norm, p.norm2, h)
         if p.spec.moe:

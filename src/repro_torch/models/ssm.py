@@ -89,12 +89,21 @@ def _causal(chunk, device):
                                  device=device))
 
 
+def _causal_exp(rel):
+    """``where(causal, exp(rel), 0)`` over the last two axes (t, s) of a
+    new tensor ``rel``, in place: the masked entries become -inf before
+    the exponential, so no entry above the diagonal overflows and the
+    backward pass sees exp's own output."""
+    chunk = rel.shape[-1]
+    return rel.masked_fill_(~_causal(chunk, rel.device), -math.inf).exp_()
+
+
 def _ssd_chunked(xh, dt, B_, C_, a_log, chunk):
     """Chunked SSD core.
 
     xh: (B,T,H,hd)  dt: (B,T,H)  B_,C_: (B,T,N)  ->  y: (B,T,H,hd),
-    final state (B,H,hd,N).  The (B,nc,H,L,L) decay matrix is made once
-    and turned into the intra-chunk weights in place.
+    final state (B,H,hd,N).  The (B,nc,H,L,L) decay matrix is made in
+    the layout its product reads.
     """
     Bsz, T, H, hd = xh.shape
     N = B_.shape[-1]
@@ -112,9 +121,8 @@ def _ssd_chunked(xh, dt, B_, C_, a_log, chunk):
 
     # within-chunk (attention-like, causal): W[t,s] = (C_t.B_s) e^(cs_t-cs_s)
     csh = cs.transpose(2, 3)                              # (B,nc,H,L)
-    W = csh[..., :, None] - csh[..., None, :]             # (B,nc,H,L,L) t,s
-    W = W.exp_().masked_fill_(~_causal(chunk, xh.device), 0.0)
-    W.mul_(torch.einsum("bctn,bcsn->bcts", Cc, Bc)[:, :, None])
+    W = _causal_exp(csh[..., :, None] - csh[..., None, :])  # (B,nc,H,L,L)
+    W = W * torch.einsum("bctn,bcsn->bcts", Cc, Bc)[:, :, None]
     y_intra = torch.einsum("bchts,bcshd->bcthd", W, xin)
     del W
 
@@ -275,9 +283,8 @@ def mlstm_forward(p, cfg: ArchConfig, x, return_state=False,
     # within-chunk: W[t,s] = (q_t.k_s) exp(cs_t - cs_s + li_s), causal;
     # made once, it gives both y_intra and the normaliser's intra part
     csh, lih = cs.transpose(2, 3), li.transpose(2, 3)     # (B,nc,H,L)
-    W = csh[..., :, None] - csh[..., None, :] + lih[..., None, :]
-    W = W.exp_().masked_fill_(~_causal(chunk, x.device), 0.0)
-    W.mul_(torch.einsum("bcthd,bcshd->bchts", qc, kc))   # (B,nc,H,L,L)
+    W = _causal_exp(csh[..., :, None] - csh[..., None, :] + lih[..., None, :])
+    W = W * torch.einsum("bcthd,bcshd->bchts", qc, kc)   # (B,nc,H,L,L)
     y_intra = torch.einsum("bchts,bcshd->bcthd", W, vc)
     n_intra = W.sum(dim=-1).transpose(2, 3)               # (B,nc,L,H)
     del W

@@ -107,10 +107,14 @@ def _split_microbatches(batch, m):
 def value_and_grad(lm, loss, batch, out=None):
     """``loss(lm, batch) -> (l, aux)`` and its gradient with respect to
     every parameter of ``lm`` as the reference's pytree (written into
-    ``out``'s leaves when it is given): (l, aux, grads), all detached."""
+    ``out``'s leaves when it is given): (l, aux, grads), all detached.  A
+    parameter the loss never reads (Mamba2's ``dt_bias``) gets a zero
+    gradient of its own type, as ``jax.grad`` gives it."""
     (l, aux) = loss(lm, batch)
     names, params = zip(*lm.named_parameters())
-    grads = torch.autograd.grad(l, params)
+    grads = torch.autograd.grad(l, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
     return l.detach(), {k: v.detach() for k, v in aux.items()}, \
         interop.lm_tree(lm, dict(zip(names, grads)), out)
 

@@ -28,7 +28,6 @@ from repro.configs.base import INPUT_SHAPES as REF_SHAPES
 from repro.configs.registry import ARCH_IDS
 from repro.configs.registry import get_arch as ref_get_arch
 from repro.launch import analytic as RA
-from repro.launch.train import train_loop as ref_train_loop
 from repro.models import model as RM
 from repro.train import checkpoint as RC
 from repro.train.steps import _split_microbatches as ref_split
@@ -37,14 +36,16 @@ from repro_torch import tree as T
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.configs.registry import get_arch
 from repro_torch.launch import analytic as A
-from repro_torch.launch.train import train_loop
 from repro_torch.models import model as M
 from repro_torch.train import checkpoint as C
 from repro_torch.train import steps as S
 
-ARCHS = ["gemma3-1b", "qwen2.5-3b", "phi3-mini-3.8b"]
+from _torch_train_parity import check_loss_and_grads, check_train_loop
+
+ARCHS = ["gemma3-1b", "qwen2.5-3b", "phi3-mini-3.8b", "qwen1.5-110b"]
 # gemma3's reduced window is 64: 72 tokens cross it
-SEQ = {"gemma3-1b": 72, "qwen2.5-3b": 16, "phi3-mini-3.8b": 16}
+SEQ = {"gemma3-1b": 72, "qwen2.5-3b": 16, "phi3-mini-3.8b": 16,
+       "qwen1.5-110b": 16}
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
 
@@ -74,34 +75,9 @@ def _tbatch(batch):
     return {k: torch.tensor(v) for k, v in batch.items()}
 
 
-def _port_grads(lm, cfg, batch, **kw):
-    loss, aux = M.loss_fn(lm, cfg, batch, **kw)
-    names, params = zip(*lm.named_parameters())
-    grads = dict(zip(names, torch.autograd.grad(loss, params)))
-    return loss.detach(), aux, interop.lm_tree(lm, grads)
-
-
-def _leaf_close(got, want, rel):
-    for (path, g), w in zip(T.flatten_with_path(got), jax.tree.leaves(want)):
-        w = np.asarray(w, np.float64)
-        g = g.detach().double().numpy()
-        assert g.shape == w.shape, path
-        scale = max(float(np.abs(w).max()), 1e-30)
-        assert float(np.abs(g - w).max()) <= rel * scale, path
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_reference(arch):
-    rcfg, cfg, rparams, batch = _setup(arch)
-    (rl, raux), rg = jax.jit(jax.value_and_grad(
-        lambda p, b: RM.loss_fn(p, rcfg, b), has_aux=True))(
-            rparams, {k: jnp.asarray(v) for k, v in batch.items()})
-    loss, aux, grads = _port_grads(_port_params(arch), cfg, _tbatch(batch),
-                                   remat=True)
-    assert abs(float(loss) - float(rl)) <= 1e-6 * abs(float(rl))
-    assert float(aux["ce_loss"]) == float(loss)
-    assert float(aux["load_balance_loss"]) == 0.0
-    _leaf_close(grads, rg, 1e-5)
+    check_loss_and_grads(*_setup(arch))
 
 
 def test_chunked_ce_equals_unchunked():
@@ -192,26 +168,11 @@ def test_microbatched_matches_full(accum_mode, monkeypatch):
                                atol=0)
 
 
-@functools.lru_cache(maxsize=None)
-def _both_train_loops(strategy):
-    """Five steps of the reference's train_loop and the port's from the
-    same weights (PRNGKey(0)) on the same hmm_stream batches: (reference
-    params, reference history, port model, port history, port step ms)."""
-    rcfg, cfg, rparams, _ = _setup("gemma3-1b")
-    kw = dict(steps=5, batch_size=4, seq_len=32, lr=2e-3, strategy=strategy,
-              log_every=1000)
-    ref_params, want = ref_train_loop(rcfg, **kw)
-    lm = interop.lm_params(cfg, rparams)
-    params, got, step_ms = train_loop(cfg, params=lm, device="cpu", **kw)
-    return jax.tree.map(np.asarray, ref_params), want, params, got, step_ms
-
-
 @pytest.mark.parametrize("strategy", ["sync", "stale"])
 def test_train_loop_matches_reference(strategy):
     """The five losses of both train_loops within 1e-5 relative."""
-    _, want, params, got, step_ms = _both_train_loops(strategy)
-    assert isinstance(params, M.CausalLM) and len(step_ms) == 5
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    got = check_train_loop("gemma3-1b", steps=5, batch_size=4, seq_len=32,
+                           lr=2e-3, strategy=strategy)
     assert got[-1] < got[0]
 
 
