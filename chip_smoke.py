@@ -24,8 +24,9 @@
    function are measured at the main path's shape (CUDA-graph replays
    timed with CUDA events); K5 also at a decode step's 4 rows and at
    phase families' 8192 rows of 2048, 4096, 7168, 5120 and 8192, K6 also
-   at (4, 32, 2048, 64) and at (4, 56, 2048, 128) and (4, 64, 2048, 128)
-   against (4, 8, 2048, 128); K2 at the
+   at (4, 32, 2048, 64), at (4, 56, 2048, 128) and (4, 64, 2048, 128)
+   against (4, 8, 2048, 128) and at whisper-small's (4, 12, 448, 64); K2
+   at the
    main path's six shapes, at (1, 4000, 400) and at the six shapes the
    other specs give it, beside an empty kernel's time (the launch floor);
    K1 as the path calls it, from one input, beside ``torch.count_nonzero``,
@@ -121,26 +122,34 @@
 6b. Phase families: gemma3-1b is freed (the bytes still allocated are
    printed), then xlstm-350m and zamba2-1.2b at full width and depth,
    arctic-480b at full width and 2 layers (its 35 do not fit),
-   qwen1.5-110b at full width and 4 layers and deepseek-v2-236b at full
-   width and 7 layers (the dense layer and 6 MoE layers of 160 experts)
-   are served in bfloat16 from seed 0 as in phase 5, one after another:
-   K5 and K6 must launch exactly ``FAMILIES``' counts per prefill (xlstm
-   24 and 0, zamba2 77 and 6, arctic 5 and 2, qwen1.5 9 and 4, deepseek
-   15 and 0: MLA attention is plain, as in the reference), K5 as often
-   per decode step and K6 never (41 steps a run).  Prefill ms, decode
+   qwen1.5-110b at full width and 4 layers, deepseek-v2-236b at full
+   width and 7 layers (the dense layer and 6 MoE layers of 160 experts),
+   whisper-small uncut and qwen2-vl-72b at full width and 4 layers are
+   served in bfloat16 from seed 0 as in phase 5, one after another (whisper
+   prefills 4 x 448 decoder tokens against 4 x 1500 frame embeddings and
+   decodes with its encoder output; qwen2-vl's prompts open with 1024
+   patch embeddings on a 32 x 32 M-RoPE grid): K5 and K6 must launch
+   exactly ``FAMILIES``' counts per prefill (xlstm 24 and 0, zamba2 77
+   and 6, arctic 5 and 2, qwen1.5 9 and 4, deepseek 15 and 0: MLA
+   attention is plain, as in the reference; whisper 0 and 12: LayerNorm,
+   and its encoder and cross-attention are plain; qwen2-vl 9 and 4), K5
+   as often per decode step and K6 never (41 steps a run).  Prefill ms, decode
    ms per token, peak GB and one profiled prefill per family; the kernel
    prefill against the no-kernel prefill in bfloat16 (relative L2,
    printed: at random weights zamba2's depth and arctic's top-2 routing
    amplify an ulp past 2e-2, see ``run_families``).  Checks: (a) each
    kernel prefill against the no-kernel prefill in float32 at the served
-   width (arctic at 1 layer, qwen1.5 and deepseek at 2) within 2e-2
-   relative L2; (b) in float32, prefill logits against token-by-token
-   decoding within 5e-4 at each of 256 positions, on xlstm at 8 layers,
-   zamba2 at 6, arctic at full width, 1 layer, 8 experts and capacity
-   factor 8, qwen1.5 at 2 layers and deepseek at 2 layers, 8 experts and
-   capacity factor 8 (MLA's absorbed decode against its decompressed
-   prefill); (c) the five reduced configs in float32 from the same
-   weights on the card and the CPU, logits within 1e-4.
+   width (arctic at 1 layer, qwen1.5, deepseek and qwen2-vl at 2, qwen2-vl
+   with its vision inputs) within 2e-2 relative L2; (b) in float32,
+   prefill logits against token-by-token decoding within 5e-4 at each of
+   256 positions, on xlstm at 8 layers, zamba2 at 6, arctic at full
+   width, 1 layer, 8 experts and capacity factor 8, qwen1.5 at 2 layers,
+   deepseek at 2 layers, 8 experts and capacity factor 8 (MLA's absorbed
+   decode against its decompressed prefill), whisper at 6 decoder layers
+   with its encoder output and qwen2-vl at 2 layers, text only; (c) the
+   seven reduced configs in float32 from the same weights on the card and
+   the CPU (whisper with frames, qwen2-vl with vision inputs), logits
+   within 1e-4.
 7. Phase train: ``launch.train.train_loop`` at full-width gemma3-1b in
    bfloat16 on the card (AdamW, lr 3e-4, every layer recomputed in the
    backward, batches of 8 x 1024 tokens from ``hmm_stream``), 10 sync
@@ -213,19 +222,29 @@ SERVE_KERNELS = ("rmsnorm", "flash_attention")
 # xlstm normalises with LayerNorm elsewhere.  K6: one per attention or
 # shared-attention layer.
 # MLA attention is plain torch under both implementations, as in the
-# reference, so deepseek-v2 launches no K6.
+# reference, so deepseek-v2 launches no K6; whisper normalises with
+# LayerNorm, and its encoder and cross-attention are plain torch, so it
+# launches K6 once per decoder layer and no K5.
 FAMILIES = (("xlstm-350m", None, 24, 0),      # 21 mLSTM + 3 sLSTM gated
             ("zamba2-1.2b", None, 77, 6),     # 38 + 6 + 1 + 32 gated
             ("arctic-480b", 2, 5, 2),         # 2 * 2 + 1
             ("qwen1.5-110b", 4, 9, 4),        # 2 * 4 + 1
-            ("deepseek-v2-236b", 7, 15, 0))   # 2 * 7 + 1: dense + 6 MoE
+            ("deepseek-v2-236b", 7, 15, 0),   # 2 * 7 + 1: dense + 6 MoE
+            ("whisper-small", None, 0, 12),   # 12 decoder layers
+            ("qwen2-vl-72b", 4, 9, 4))        # 2 * 4 + 1
 # layers of check (a)'s float32 models (None: all): arctic's 128 experts
-# hold one layer in float32 on one card (56 GB); qwen1.5-110b and
+# hold one layer in float32 on one card (56 GB); qwen1.5-110b,
 # deepseek-v2 (its dense layer and one MoE layer with all 160 experts)
-# hold two (about 21 GB each)
+# and qwen2-vl-72b hold two (about 17-21 GB each)
 FAMILY_CHECK_LAYERS = {"xlstm-350m": None, "zamba2-1.2b": None,
                        "arctic-480b": 1, "qwen1.5-110b": 2,
-                       "deepseek-v2-236b": 2}
+                       "deepseek-v2-236b": 2, "whisper-small": None,
+                       "qwen2-vl-72b": 2}
+# layers of check (b)'s float32 models (whisper's decoder layers; its
+# encoder keeps its 12)
+FAMILY_DECODE_LAYERS = {"xlstm-350m": 8, "zamba2-1.2b": 6, "arctic-480b": 1,
+                        "qwen1.5-110b": 2, "deepseek-v2-236b": 2,
+                        "whisper-small": 6, "qwen2-vl-72b": 2}
 FAMILY_STEPS = 16 + 24          # decode steps of a run: prompt + generated
 # K5 at the families' prefill widths (8192 rows): zamba2's norms and
 # xlstm's mLSTM gated norm, zamba2's gated norm, arctic's norms,
@@ -233,9 +252,13 @@ FAMILY_STEPS = 16 + 24          # decode steps of a run: prompt + generated
 K5_FAMILY_SHAPES = ((8192, 2048), (8192, 4096), (8192, 7168), (8192, 5120),
                     (8192, 8192))
 # K6 at the families' prefill shapes (B, H, KV, S, D): zamba2's shared
-# attention, arctic's GQA 56:8, qwen1.5-110b's GQA 64:8
+# attention, arctic's GQA 56:8, qwen1.5-110b's and qwen2-vl-72b's GQA
+# 64:8, whisper-small's decoder self-attention (448 rows, ragged against
+# the 128-row q tiles)
 K6_FAMILY_SHAPES = ((4, 32, 32, 2048, 64), (4, 56, 8, 2048, 128),
-                    (4, 64, 8, 2048, 128))
+                    (4, 64, 8, 2048, 128), (4, 12, 12, 448, 64))
+# whisper-small's decoder context (arXiv:2212.04356)
+WHISPER_DECODER_TOKENS = 448
 
 
 def _fail(msg: str) -> int:
@@ -745,8 +768,8 @@ def check_lm_kernels(dev):
               for B, H, KV, S, D in K6_FAMILY_SHAPES]
     cases += [(c, torch.float32) for c in
               [(1, 256, 32, 32, 64, 0), (1, 256, 56, 8, 128, 0),
-               (1, 256, 64, 8, 128, 0), (2, 40, 4, 4, 64, 0),
-               (2, 40, 4, 1, 64, 0)]]
+               (1, 256, 64, 8, 128, 0), (1, 256, 12, 12, 64, 0),
+               (2, 40, 4, 4, 64, 0), (2, 40, 4, 1, 64, 0)]]
     err_by_dtype = {"float32": 0.0, "bfloat16": 0.0}
     for (B, S, H, KV, D, window), dtype in cases:
         q = randn(B, S, H, D, dtype=dtype)
@@ -1053,13 +1076,63 @@ def check_serve(dev, params, batch, logits):
             "b_windows": [s.window for s in M.layer_plan(cfg6)]}
 
 
+def _grid_positions(batch, seq, vision, device):
+    """(3, batch, seq) M-RoPE ids of a prompt that opens with ``vision``
+    patches of a square grid, as Qwen2-VL lays them out (arXiv:2409.12191
+    section 2.1): t = 0, h = row, w = col; the text continues from the
+    grid's side on all three streams."""
+    import torch
+    side = math.isqrt(vision)
+    if side * side != vision:
+        raise ValueError(f"{vision} patches are not a square grid")
+    idx = torch.arange(vision, device=device)
+    text = side + torch.arange(seq - vision, device=device)
+    pos = torch.stack([torch.cat([torch.zeros_like(idx), text]),
+                       torch.cat([idx // side, text]),
+                       torch.cat([idx % side, text])])
+    return pos[:, None].expand(3, batch, seq).contiguous()
+
+
+def _family_batch(cfg, gen, dev):
+    """Phase families' prefill batch, drawn from ``gen``: 4 prompts of 2048
+    tokens; for whisper 448 decoder tokens and 0.1 * normal frame
+    embeddings (4, 1500, 768); for qwen2-vl 0.02 * normal patch
+    embeddings for the first 1024 positions (a 32 x 32 grid), with grid
+    positions.  The embeddings are in the model's type."""
+    import torch
+    dtype = getattr(torch, cfg.dtype)
+    seq = WHISPER_DECODER_TOKENS if cfg.encoder_layers else 2048
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, seq),
+                                     generator=gen, device=dev)}
+    if cfg.encoder_layers:
+        batch["frames"] = (0.1 * torch.randn(
+            4, cfg.encoder_seq, cfg.d_model, generator=gen,
+            device=dev)).to(dtype)
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = (0.02 * torch.randn(
+            4, cfg.vision_tokens, cfg.d_model, generator=gen,
+            device=dev)).to(dtype)
+        batch["positions"] = _grid_positions(4, seq, cfg.vision_tokens, dev)
+    return batch
+
+
+def _as_float32(batch):
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in batch.items()}
+
+
 def run_families(dev):
     """Phase families: xlstm-350m and zamba2-1.2b at full width and depth,
-    arctic-480b at full width and 2 layers, qwen1.5-110b at 4 and
-    deepseek-v2-236b at 7 (its dense layer and 6 MoE layers), bfloat16,
-    random weights from seed 0.  For each: a prefill of 4 x 2048 tokens through
+    arctic-480b at full width and 2 layers, qwen1.5-110b at 4,
+    deepseek-v2-236b at 7 (its dense layer and 6 MoE layers), whisper-small
+    uncut and qwen2-vl-72b at 4, bfloat16, random weights from seed 0.
+    For each: a prefill of ``_family_batch`` (4 x 2048 tokens; whisper's
+    4 x 448 against 4 x 1500 frames, qwen2-vl's with 1024 patch
+    embeddings) through
     ``make_prefill_step``, then ``greedy_generate`` of 24 tokens for 4
-    requests of 16 prompt tokens, with the counters set to 0 just before
+    requests of 16 prompt tokens (whisper's against the encoder output of
+    the batch's frames, computed before the counters are set), with the
+    counters set to 0 just before
     and read after the prefill and after the run: K5 and K6 must launch
     exactly ``FAMILIES``' counts per prefill, K5 as often per decode step,
     K6 never in decoding, no other kernel at all.  One more prefill runs
@@ -1071,9 +1144,10 @@ def run_families(dev):
     weights: 38 layers amplify bfloat16 rounding) or arctic (a change in
     an ulp flips top-2 choices among 128 experts).  Check (a) is made in
     float32 from seed 0 at the same width (arctic at 1 layer, all 128
-    experts; qwen1.5-110b and deepseek-v2 at 2, deepseek's with all 160
-    experts): the kernel prefill's next-token logits against the
-    no-kernel prefill's within 2e-2 relative L2.  For deepseek-v2 the two
+    experts; qwen1.5-110b, deepseek-v2 and qwen2-vl at 2, deepseek's with
+    all 160 experts, on the same batch in float32): the kernel prefill's
+    next-token logits against the no-kernel prefill's within 2e-2
+    relative L2.  For deepseek-v2 the two
     prefills differ only in K5 (MLA attention is plain in both).  Each
     model is freed before the next is built.  Returns ({arch: report},
     {arch: launches of the run})."""
@@ -1096,13 +1170,14 @@ def run_families(dev):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         weights_gb = torch.cuda.memory_allocated() / 1e9
-        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
-                                         generator=gen, device=dev)}
+        batch = _family_batch(cfg, gen, dev)
         prompts = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
                                 device=dev)
+        enc = (M.encode(params.encoder, cfg, batch["frames"])
+               if cfg.encoder_layers else None)
         prefill = E.make_prefill_step(cfg)
         prefill(params, batch)                      # warm-up, not counted
-        E.greedy_generate(params, cfg, prompts, 2, device=dev)
+        E.greedy_generate(params, cfg, prompts, 2, device=dev, enc_out=enc)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1110,7 +1185,8 @@ def run_families(dev):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         per_prefill = kernels.launch_counts()
-        out = E.greedy_generate(params, cfg, prompts, 24, device=dev)
+        out = E.greedy_generate(params, cfg, prompts, 24, device=dev,
+                                enc_out=enc)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         run = kernels.launch_counts()
@@ -1129,7 +1205,9 @@ def run_families(dev):
                 or int(out.max()) >= cfg.vocab_size:
             raise AssertionError(f"{arch}: generated tokens malformed: "
                                  f"{tuple(out.shape)}")
-        report = {"layers": cfg.num_layers, "init_s": init_s,
+        report = {"layers": cfg.num_layers,
+                  "prefill_tokens": list(batch["tokens"].shape),
+                  "init_s": init_s,
                   "weights_gb": weights_gb,
                   "prefill_ms": (t1 - t0) * 1e3,
                   "prefill_tokens_per_s": batch["tokens"].numel() / (t1 - t0),
@@ -1145,7 +1223,7 @@ def run_families(dev):
         report["bf16_argmax_agreement"] = float(
             (logits.argmax(-1) == plain.argmax(-1)).float().mean())
         reports[arch], launches[arch] = report, run
-        del params, prompts, logits, plain, out
+        del params, prompts, logits, plain, out, enc
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1155,6 +1233,7 @@ def run_families(dev):
                                        else {}))
         params = M.init_params(
             cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+        batch = _as_float32(batch)
         logits = E.make_prefill_step(cfg32)(params, batch)
         plain = E.make_prefill_step(cfg32, attention_impl="reference")(
             params, batch)
@@ -1180,22 +1259,23 @@ def check_families(dev):
     xlstm-350m at 8 layers (7 mLSTM, 1 sLSTM), zamba2-1.2b at 6 (5 Mamba2,
     1 shared attention), arctic-480b at full width, 1 layer, 8 experts
     and capacity factor 8 (no assignment dropped: the reference test's
-    setting), qwen1.5-110b at 2 layers, and deepseek-v2-236b at 2 (the
-    dense layer and one MoE layer) with 8 experts and capacity factor 8:
-    MLA's absorbed decode against its decompressed prefill.  (c) each
-    reduced config in float32 from the same weights on the card
-    (kernels) and on the CPU (plain versions): logits of a prefill of 2 x
-    40 tokens and of 40 decode steps within 1e-4, the
-    load-balance loss within 1e-5 relative."""
+    setting), qwen1.5-110b at 2 layers, deepseek-v2-236b at 2 (the
+    dense layer and one MoE layer) with 8 experts and capacity factor 8
+    (MLA's absorbed decode against its decompressed prefill), whisper-small
+    at 6 decoder layers against 1500 frames (decoding with the encoder's
+    output) and qwen2-vl-72b at 2 layers, text only (decoding feeds no
+    vision embeddings).  (c) each reduced config in float32 from the same
+    weights on the card (kernels) and on the CPU (plain versions), with
+    frames (whisper) or vision embeddings and grid positions (qwen2-vl):
+    logits of a prefill of 2 x 40 tokens and of 40 decode steps within
+    1e-4, the load-balance loss within 1e-5 relative."""
     import torch
     from repro_torch import interop
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import model as M
 
     out = {"b_max_abs_diff": {}, "c_max_abs_diff": {}}
-    for arch, layers in (("xlstm-350m", 8), ("zamba2-1.2b", 6),
-                         ("arctic-480b", 1), ("qwen1.5-110b", 2),
-                         ("deepseek-v2-236b", 2)):
+    for arch, layers in FAMILY_DECODE_LAYERS.items():
         cfg = dataclasses.replace(get_arch(arch), num_layers=layers,
                                   dtype="float32")
         if cfg.moe:
@@ -1205,19 +1285,24 @@ def check_families(dev):
         params = M.init_params(cfg, gen, dev)
         tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
                                device=dev)
-        full, _ = M.forward(params, cfg, {"tokens": tokens})
+        batch, enc = {"tokens": tokens}, None
+        if cfg.encoder_layers:
+            batch["frames"] = 0.1 * torch.randn(
+                1, cfg.encoder_seq, cfg.d_model, generator=gen, device=dev)
+            enc = M.encode(params.encoder, cfg, batch["frames"])
+        full, _ = M.forward(params, cfg, batch)
         state = M.init_decode_state(cfg, 1, tokens.shape[1], device=dev)
         err = torch.zeros((), device=dev)
         for t in range(tokens.shape[1]):
             step, state = M.decode_step(params, cfg, tokens[:, t:t + 1],
-                                        state)
+                                        state, enc_out=enc)
             err = torch.maximum(err, (step[:, 0] - full[:, t]).abs().max())
         err = float(err)
         if not err <= 5e-4:
             raise AssertionError(f"{arch} at {layers} layers: prefill and "
                                  f"decode logits differ by {err} > 5e-4")
         out["b_max_abs_diff"][arch] = err
-        del params, full, state
+        del params, full, state, batch, enc
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1225,17 +1310,30 @@ def check_families(dev):
         cfg = get_arch(arch).reduced()
         lm = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
         on_card = interop.lm_params(cfg, interop.lm_tree(lm), dev)
-        tokens = torch.randint(0, cfg.vocab_size, (2, 40),
-                               generator=torch.Generator().manual_seed(4))
+        g = torch.Generator().manual_seed(4)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                         generator=g)}
+        if cfg.encoder_layers:
+            batch["frames"] = 0.1 * torch.randn(
+                2, cfg.encoder_seq, cfg.d_model, generator=g)
+        if cfg.vision_tokens:
+            batch["vision_embeds"] = 0.02 * torch.randn(
+                2, cfg.vision_tokens, cfg.d_model, generator=g)
+            batch["positions"] = _grid_positions(2, 40, cfg.vision_tokens,
+                                                 "cpu")
         logits, diffs = {}, []
-        for name, model, toks in (("cpu", lm, tokens),
-                                  ("cuda", on_card, tokens.to(dev))):
-            full, aux = M.forward(model, cfg, {"tokens": toks})
+        for name, model, b in (("cpu", lm, batch),
+                               ("cuda", on_card,
+                                {k: v.to(dev) for k, v in batch.items()})):
+            full, aux = M.forward(model, cfg, b)
+            enc = (M.encode(model.encoder, cfg, b["frames"])
+                   if cfg.encoder_layers else None)
+            toks = b["tokens"]
             state = M.init_decode_state(cfg, 2, 48, device=toks.device)
             steps = []
             for t in range(toks.shape[1]):
                 step, state = M.decode_step(model, cfg, toks[:, t:t + 1],
-                                            state)
+                                            state, enc_out=enc)
                 steps.append(step[:, 0])
             logits[name] = (full.cpu(), torch.stack(steps, 1).cpu(),
                             float(aux["load_balance_loss"]))
@@ -2744,8 +2842,9 @@ def main() -> int:
     t0 = time.perf_counter()
     families, family_launches = run_families(dev)
     for arch, rep in families.items():
-        print(f"  family {arch} bf16 prefill 4x2048, greedy 4x(16+24) "
-              f"[{card}] "
+        print(f"  family {arch} bf16 prefill "
+              f"{'x'.join(map(str, rep['prefill_tokens']))}, greedy "
+              f"4x(16+24) [{card}] "
               f"{json.dumps({k: v for k, v in rep.items() if k != 'profile'})}"
               f" launches={family_launches[arch]}", flush=True)
         print(f"  family {arch} prefill profile {json.dumps(rep['profile'])}",

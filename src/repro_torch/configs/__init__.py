@@ -2,8 +2,6 @@
 architectures as `ArchConfig` dataclasses (one data module each), the
 `registry.get_arch` / `ARCH_IDS` lookup and the (arch x input-shape)
 applicability matrix.  `base.py` defines the config schema and the
-canonical input shapes.  The port runs the dense attention, MoE, SSM
-and hybrid families (`models/model.py` raises NotImplementedError for
-MLA, cross-attention, the audio encoder, vision inputs, M-RoPE and
-learned positions).
+canonical input shapes.  The port builds and runs every arch of the
+registry (`models/model.py`).
 """

@@ -11,10 +11,14 @@ turned into the port's, so tests can feed both packages identical inputs.
   :func:`model`    a model vector -> a float32 tensor
   :func:`lm_params`  the reference LM's ``init_params`` pytree -> the
                    port's ``CausalLM`` (segments unstacked into per-layer
-                   blocks in layer-plan order, nested MoE subtrees and
-                   zamba2's ``shared_attn`` included)
+                   blocks in layer-plan order, nested MoE subtrees,
+                   zamba2's ``shared_attn``, whisper's ``pos_embed`` and
+                   ``encoder`` (its stacked layers unstacked too) and
+                   each decoder layer's ``cross`` and ``norm_cross``
+                   included)
   :func:`lm_tree`  its inverse: a ``CausalLM`` -> the reference's pytree,
-                   each segment's layers stacked on a leading axis
+                   each segment's and the encoder's layers stacked on a
+                   leading axis
 
 The trainer uses the last two as well: its train states and checkpoints
 hold the reference's leaves, and its models are views of them.
@@ -114,19 +118,41 @@ def _put(pdict, tree, layer, device):
             _set_leaf(pdict, name, a, layer, device)
 
 
+# top-level subtrees a ``CausalLM`` holds as it needs them
+_OPTIONAL_TOPS = ("lm_head", "pos_embed", "encoder", "shared_attn")
+
+
+def _put_layers(blocks, stack, n, device):
+    """A stacked subtree of ``n`` layers -> the blocks' parts, layer by
+    layer; consumes ``n`` blocks of the iterator ``blocks``."""
+    for layer in range(n):
+        block = next(blocks)
+        if set(stack) != set(block.parts):
+            raise ValueError(f"block parts differ: port "
+                             f"{sorted(block.parts)}, reference "
+                             f"{sorted(stack)}")
+        for part in block.parts:
+            if isinstance(stack[part], dict):
+                _put(getattr(block, part), stack[part], layer, device)
+            else:
+                _set_leaf(block, part, stack[part], layer, device)
+
+
 def lm_params(cfg, params, device="cpu"):
     """The reference's ``models.model.init_params`` pytree, its leaves as
     numpy arrays or tensors, -> the port's ``CausalLM`` with the same
     weights.  Each segment's leading (layer) axis is unstacked into
     per-layer blocks in ``layer_plan`` order (``norm1`` with ``attn``,
-    ``norm2`` and ``mlp`` or ``moe``, with ``block``, or with ``down``);
-    tied embeddings, optional QKV biases and the top-level
-    ``shared_attn`` follow the pytree.  Tensor leaves already on
+    ``norm2`` and ``mlp`` or ``moe`` (and ``cross``, ``norm_cross``),
+    with ``block``, or with ``down``); tied embeddings, optional QKV
+    biases and the top-level ``shared_attn``, ``pos_embed`` and
+    ``encoder`` (``pos``, ``final_norm`` and ``layers``, stacked as a
+    segment is) follow the pytree.  Tensor leaves already on
     ``device`` are not copied: each parameter is a view of its leaf."""
     from repro_torch.models import model as M
     lm = M.CausalLM(cfg, None, torch.device("meta"))
     want = {"embed", "final_norm", "segments"} | {
-        name for name in ("lm_head", "shared_attn") if hasattr(lm, name)}
+        name for name in _OPTIONAL_TOPS if hasattr(lm, name)}
     if set(params) != want:
         raise ValueError(f"top-level names differ: port {sorted(want)}, "
                          f"reference {sorted(params)}")
@@ -134,34 +160,36 @@ def lm_params(cfg, params, device="cpu"):
     _put(lm.final_norm, params["final_norm"], None, device)
     if "lm_head" in params:
         _set_leaf(lm, "lm_head", params["lm_head"], None, device)
-    if "shared_attn" in params:
-        _put(lm.shared_attn, params["shared_attn"], None, device)
+    for name in ("pos_embed", "shared_attn"):
+        if name in params:
+            _put(getattr(lm, name), params[name], None, device)
+    if "encoder" in params:
+        enc, tree = lm.encoder, params["encoder"]
+        if set(tree) != {"pos", "layers", "final_norm"}:
+            raise ValueError(f"encoder names differ: reference "
+                             f"{sorted(tree)}")
+        _put(enc.pos, tree["pos"], None, device)
+        _put(enc.final_norm, tree["final_norm"], None, device)
+        _put_layers(iter(enc.layers), tree["layers"], len(enc.layers),
+                    device)
     blocks = iter(lm.blocks)
     for (_, n), stack in zip(M.segments(cfg), params["segments"]):
-        for layer in range(n):
-            block = next(blocks)
-            if set(stack) != set(block.parts):
-                raise ValueError(f"block parts differ: port "
-                                 f"{sorted(block.parts)}, reference "
-                                 f"{sorted(stack)}")
-            for part in block.parts:
-                if isinstance(stack[part], dict):
-                    _put(getattr(block, part), stack[part], layer, device)
-                else:
-                    _set_leaf(block, part, stack[part], layer, device)
+        _put_layers(blocks, stack, n, device)
     return lm
 
 
 def lm_tree(lm, values=None, out=None):
     """A ``CausalLM`` -> the reference's ``init_params`` pytree:
-    ``embed``, ``final_norm``, ``lm_head`` when untied, ``shared_attn``
-    when the model has it, and ``segments``, one dict per segment of
-    ``models.model.segments`` with each leaf's layers stacked on a leading
-    axis (new memory; the other leaves are the parameters themselves,
-    detached).  ``values``, a dict keyed by the port's parameter names
-    (``named_parameters``), puts its tensors in the parameters' places:
-    the same tree of gradients, say.  ``out``, a tree of that structure,
-    receives every leaf in place and is returned."""
+    ``embed``, ``final_norm``, ``lm_head`` when untied, ``pos_embed``,
+    ``encoder`` and ``shared_attn`` when the model has them, and
+    ``segments``, one dict per segment of ``models.model.segments`` with
+    each leaf's layers stacked on a leading axis, as the encoder's
+    ``layers`` are (new memory; the other leaves are the parameters
+    themselves, detached).  ``values``, a dict keyed by the port's
+    parameter names (``named_parameters``), puts its tensors in the
+    parameters' places: the same tree of gradients, say.  ``out``, a
+    tree of that structure, receives every leaf in place and is
+    returned."""
     from repro_torch.models import model as M
     if values is None:
         values = {k: v.detach() for k, v in lm.named_parameters()}
@@ -188,17 +216,30 @@ def lm_tree(lm, values=None, out=None):
             node = None if node is None else node[k]
         return node
 
+    def layers(prefix, block, first, n, path):
+        """The stacked subtree of blocks ``first .. first + n - 1``."""
+        return {part: walk(getattr(block, part),
+                           [f"{prefix}.{first + j}.{part}" for j in range(n)],
+                           sub(*path, part), stacked=True)
+                for part in block.parts}
+
     tops = ["embed", "final_norm"] + [
-        name for name in ("lm_head", "shared_attn") if hasattr(lm, name)]
+        name for name in _OPTIONAL_TOPS
+        if name != "encoder" and hasattr(lm, name)]
     tree = {name: walk(getattr(lm, name), [name], sub(name))
             for name in tops}
+    if hasattr(lm, "encoder"):
+        enc = lm.encoder
+        tree["encoder"] = {
+            name: walk(getattr(enc, name), [f"encoder.{name}"],
+                       sub("encoder", name))
+            for name in ("pos", "final_norm")}
+        tree["encoder"]["layers"] = layers(
+            "encoder.layers", enc.layers[0], 0, len(enc.layers),
+            ("encoder", "layers"))
     tree["segments"], first = [], 0
     for i, (_, n) in enumerate(M.segments(lm.cfg)):
-        block = lm.blocks[first]
-        tree["segments"].append({
-            part: walk(getattr(block, part),
-                       [f"blocks.{first + j}.{part}" for j in range(n)],
-                       sub("segments", i, part), stacked=True)
-            for part in block.parts})
+        tree["segments"].append(layers("blocks", lm.blocks[first], first, n,
+                                       ("segments", i)))
         first += n
     return tree

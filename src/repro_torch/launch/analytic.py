@@ -3,9 +3,8 @@
 
 MODEL_FLOPS is 6·N·D for training (2·N·D for a forward pass) plus the
 exact attention terms; bytes are the least HBM traffic a step must move.
-Parameter counts come from the port's model built on the meta device, so
-they cover the families the port builds; the others raise
-NotImplementedError there (ROADMAP A14).  A MoE model's active parameters
+Parameter counts come from the port's model built on the meta device
+(every arch of the registry).  A MoE model's active parameters
 leave out, per MoE layer, the routed experts beyond the top k.
 """
 

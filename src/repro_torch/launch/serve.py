@@ -6,15 +6,19 @@ by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced  # full size
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
-      --no-reduced                       # also xlstm-350m; arctic-480b,
-                                         # qwen1.5-110b and
+      --no-reduced                       # also xlstm-350m and
+                                         # whisper-small; arctic-480b,
+                                         # qwen1.5-110b, qwen2-vl-72b and
                                          # deepseek-v2-236b run reduced
                                          # (their full depth does not
                                          # fit one card)
 
 The flags are the reference's (``repro/launch/serve.py``) plus
 ``--device``; ``--reduced`` is on by default and ``--no-reduced`` runs the
-full configuration.  Weights and prompts are random, from seed 0.
+full configuration.  Weights and prompts are random, from seed 0.  For an
+encoder-decoder (whisper-small) the run's generator also draws frames of
+0.1 * normal (requests, encoder_seq, d_model), in the model's type; they
+are encoded once and every decode step cross-attends to the output.
 """
 
 from __future__ import annotations
@@ -51,8 +55,16 @@ def main(argv=None):
     prompts = torch.randint(0, cfg.vocab_size,
                             (args.requests, args.prompt_len),
                             generator=gen, device=dev)
+    enc = None
+    if cfg.encoder_layers:
+        frames = 0.1 * torch.randn(
+            (args.requests, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device=dev)
+        enc = M.encode(params.encoder, cfg,
+                       frames.to(params.embed["table"].dtype))
     t0 = time.perf_counter()
-    out = greedy_generate(params, cfg, prompts, args.gen, device=dev)
+    out = greedy_generate(params, cfg, prompts, args.gen, device=dev,
+                          enc_out=enc)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

@@ -67,7 +67,16 @@ def train_loop(cfg, *, steps=50, batch_size=8, seq_len=64, lr=1e-3,
     history, step_ms = [], []
     _sync(dev)
     t0 = time.perf_counter()
+    dtype = getattr(torch, cfg.dtype)
     for step, batch in enumerate(hmm_stream(key, lm_cfg, steps, device=dev)):
+        if cfg.vision_tokens:
+            batch["vision_embeds"] = torch.zeros(
+                (batch_size, cfg.vision_tokens, cfg.d_model), dtype=dtype,
+                device=dev)
+        if cfg.encoder_layers:
+            batch["frames"] = torch.zeros(
+                (batch_size, cfg.encoder_seq, cfg.d_model), dtype=dtype,
+                device=dev)
         ts = time.perf_counter()
         state, metrics = step_fn(state, batch)
         history.append(float(metrics["loss"]))      # waits for the step

@@ -1,6 +1,7 @@
 """Grouped-query attention with an optional sliding window, Multi-head
-Latent Attention (DeepSeek-V2), and their decode-time caches (the port of
-``repro/models/attention.py``; cross-attention waits, ROADMAP A14).
+Latent Attention (DeepSeek-V2), cross-attention (whisper's decoder over
+its encoder's output), and their decode-time caches (the port of
+``repro/models/attention.py``).
 
 Shapes: hidden (B, S, d_model); caches (B, T, kv_heads, head_dim).  MLA
 caches the *compressed* latent (B, T, kv_lora) and the shared rope key
@@ -17,6 +18,10 @@ decompresses keys and values and runs :func:`gqa_attention` under both
                    arithmetic in torch (softmax weights cast to v's type
                    before P.V, row-chunked above ``Q_CHUNK``).
 
+Cross-attention is plain, unmasked :func:`gqa_attention` under both
+values, as in the reference, and decoding recomputes its keys and values
+over the whole encoder output at every step.
+
 Unlike the reference, :func:`gqa_decode` and :func:`mla_decode` write the
 new entries into their cache in place and return the same cache.
 """
@@ -30,7 +35,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import flash_attention as kfa
-from repro_torch.models.layers import _dense_init, apply_rope
+from repro_torch.models.layers import _dense_init, apply_mrope, apply_rope
 
 NEG_INF = -1e30
 ATTENTION_IMPLS = ("kernel", "reference")
@@ -71,6 +76,16 @@ def init_mla(gen, cfg: ArchConfig, dtype, device):
     }
     return {name: _dense_init(gen, shape, dtype, device)
             for name, shape in shapes.items()}
+
+
+def init_cross_attn(gen, cfg: ArchConfig, dtype, device):
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    return {
+        "wq": _dense_init(gen, (d, h * hd), dtype, device),
+        "wk": _dense_init(gen, (d, h * hd), dtype, device),
+        "wv": _dense_init(gen, (d, h * hd), dtype, device),
+        "wo": _dense_init(gen, (h * hd, d), dtype, device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -142,10 +157,10 @@ def gqa_attention(q, k, v, mask=None):
 
 
 def _rope_any(cfg, x, positions):
-    if cfg.rope_theta == 0.0 or cfg.rope_kind != "standard":
-        raise NotImplementedError(
-            f"{cfg.name}: learned positions and M-RoPE are not ported yet "
-            f"(ROADMAP A14)")
+    if cfg.rope_theta == 0.0:
+        return x            # learned absolute positions (whisper)
+    if cfg.rope_kind == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
 
 
@@ -211,6 +226,8 @@ def gqa_decode(p, cfg: ArchConfig, x, cache: KVCache, position: int):
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(p, cfg, x)
     pos_b = torch.full((B, 1), position, dtype=torch.int64, device=x.device)
+    if cfg.rope_kind == "mrope":
+        pos_b = pos_b[None].expand(3, B, 1)         # text: (p, p, p)
     q = _rope_any(cfg, q, pos_b)
     k_new = _rope_any(cfg, k_new, pos_b)
     slot = cache.index % cache.k.shape[1] if cache.window else cache.index
@@ -302,3 +319,20 @@ def mla_decode(p, cfg: ArchConfig, x, cache: MLACache, position: int):
     y = out.reshape(B, 1, -1) @ p["wo"]
     cache.index += 1
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper decoder -> encoder output)
+# ---------------------------------------------------------------------------
+
+def cross_attn_forward(p, cfg: ArchConfig, x, enc_out):
+    """x: (B, S, d) queries over enc_out: (B, Te, d) keys and values, no
+    mask."""
+    B, S, _ = x.shape
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    Te = enc_out.shape[1]
+    q = (x @ p["wq"]).reshape(B, S, h, hd)
+    k = (enc_out @ p["wk"]).reshape(B, Te, h, hd)
+    v = (enc_out @ p["wv"]).reshape(B, Te, h, hd)
+    out = gqa_attention(q, k, v, mask=None)
+    return out.reshape(B, S, -1) @ p["wo"]

@@ -6,8 +6,9 @@ model); every ``init_*`` takes an explicit ``torch.Generator`` and device,
 every ``apply_*`` is a function of its inputs.  Every RMSNorm goes through
 kernel K5 (:mod:`repro_torch.kernels.rmsnorm`): its kernel on a CUDA
 tensor, its plain version on a CPU tensor; ``use_kernel=False`` asks for
-the plain version on any device.  M-RoPE and learned positions wait
-(ROADMAP A14).
+the plain version on any device.  Rotary embeddings come in the standard
+form and Qwen2-VL's multimodal M-RoPE; whisper's learned absolute
+positions are a table of their own (:func:`init_learned_positions`).
 """
 
 from __future__ import annotations
@@ -140,6 +141,33 @@ def apply_rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, theta, sections):
+    """Qwen2-VL's multimodal RoPE.  x: (batch, seq, heads, head_dim);
+    positions3: (3, batch, seq) temporal, height and width ids;
+    ``sections`` splits the head_dim/2 frequency slots among the three
+    streams, in that order.  Computed in float32 and cast back to x's
+    type."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.int64, device=x.device)
+                     for i, s in enumerate(sections)])
+    if sec.shape[0] != x.shape[-1] // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not split "
+                         f"head_dim/2 = {x.shape[-1] // 2} slots")
+    # each frequency slot reads its own stream: (batch, seq, hd/2)
+    pos = positions3.permute(1, 2, 0).to(torch.float32)[:, :, sec]
+    ang = pos * inv
+    sin = torch.sin(ang)[..., None, :]
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def init_embedding(gen, vocab, d_model, dtype, device):
     return {"table": _dense_init(gen, (vocab, d_model), dtype, device,
                                  scale=0.02)}
+
+
+def init_learned_positions(gen, max_len, d_model, dtype, device):
+    return {"pos": _dense_init(gen, (max_len, d_model), dtype, device,
+                               scale=0.02)}

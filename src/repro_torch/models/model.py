@@ -1,39 +1,51 @@
-"""The causal LM of every family the port runs (the port of
+"""The causal LM of every family of the registry (the port of
 ``repro/models/model.py``): dense attention, MoE attention (arctic, and
 deepseek-v2's MLA with shared experts and a dense first layer), SSM
-(xLSTM's mLSTM and sLSTM) and hybrid (zamba2: Mamba2 with a shared
-attention block).
+(xLSTM's mLSTM and sLSTM), hybrid (zamba2: Mamba2 with a shared
+attention block), the vision-language backbone (qwen2-vl: precomputed
+patch embeddings and M-RoPE) and the audio encoder-decoder (whisper:
+learned positions, an encoder over precomputed frame embeddings, and
+cross-attention in every decoder layer).
 
 The reference stacks each run of identical layers and scans over it; the
 port keeps one module per layer: :class:`CausalLM` holds ``embed``, a
 ``ModuleList`` ``blocks`` in layer-plan order, ``final_norm``, ``lm_head``
-when embeddings are not tied and ``shared_attn`` when a layer of the
-plan is a shared-attention layer.  A :class:`Block` holds the reference's
-per-layer subtree: ``norm1`` plus ``attn``, ``norm2`` and ``mlp`` or
-``moe`` (attention or MLA), ``block`` (mamba2, mlstm, slstm) or ``down``
-(shared attention).  The reference's public functions are thin functions
-over it:
+when embeddings are not tied, ``shared_attn`` when a layer of the plan is
+a shared-attention layer, ``pos_embed`` for learned positions and
+``encoder`` (a :class:`WhisperEncoder`) for an encoder-decoder.  A
+:class:`Block` holds the reference's per-layer subtree: ``norm1`` plus
+``attn``, ``norm2`` and ``mlp`` or ``moe`` (attention or MLA; and
+``cross`` with ``norm_cross`` in a decoder layer with cross-attention),
+``block`` (mamba2, mlstm, slstm) or ``down`` (shared attention).  The
+reference's public functions are thin functions over it:
 
   init_params(cfg, generator, device)           -> CausalLM
   forward(params, cfg, batch, ...)              -> (logits, aux) (prefill)
   loss_fn(params, cfg, batch, ...)              -> (loss, aux) (training)
+  encode(params.encoder, cfg, frames)           -> encoder output
   init_decode_state(cfg, batch, max_len, ...)   -> per-layer caches
-  decode_step(params, cfg, tokens, state)       -> (logits, new state)
+  decode_step(params, cfg, tokens, state, enc_out=None)
+                                                -> (logits, new state)
+
+A batch holds ``tokens`` and, as the reference's, may hold
+``vision_embeds`` (they replace the first token embeddings),
+``positions`` ((3, B, S) temporal, height and width ids under M-RoPE;
+(p, p, p) when absent) and ``frames`` (the encoder's input, in the
+model's type).
 
 ``attention_impl="kernel"`` (the default, the reference's ``"pallas"``)
 sends every GQA attention through K6 and every RMSNorm, the SSM blocks'
 gated norm included, through K5: kernels on a CUDA tensor, their plain
 versions on a CPU tensor.  ``attention_impl="reference"`` runs the
 reference model's own arithmetic with no kernel: :func:`attention.
-gqa_attention` and the plain RMSNorm.  MLA attention is
+gqa_attention` and the plain RMSNorm.  MLA attention, the
+encoder's bidirectional self-attention and cross-attention are
 :func:`attention.gqa_attention` under both values, as in the reference.
 Decoding always normalises through K5; its one-token attention is plain
 torch, as in the reference.
 Training (:func:`loss_fn`) always takes the reference's arithmetic, as the
 reference's train steps do: the kernels have no backward.  Parameters are
 built with ``requires_grad=False``; a trainer turns it on.
-Cross-attention, the audio encoder, vision inputs, M-RoPE and learned
-positions raise NotImplementedError (ROADMAP A14.4, A14.5).
 """
 
 from __future__ import annotations
@@ -52,7 +64,8 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (_dense_init, apply_mlp, apply_norm,
-                                       init_embedding, init_mlp, init_norm)
+                                       init_embedding, init_learned_positions,
+                                       init_mlp, init_norm)
 from repro_torch.models.moe import init_moe, moe_forward
 
 
@@ -98,26 +111,6 @@ def segments(cfg: ArchConfig) -> List[Tuple[LayerSpec, int]]:
     return out
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    missing = []
-    for spec in layer_plan(cfg):
-        if spec.cross:
-            missing.append("cross-attention")
-    if cfg.encoder_layers:
-        missing.append("the audio encoder")
-    if cfg.vision_tokens:
-        missing.append("vision inputs")
-    if cfg.rope_kind != "standard":
-        missing.append("M-RoPE")
-    if cfg.rope_theta == 0.0:
-        missing.append("learned positions")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(sorted(set(missing)))} not ported yet "
-            f"(ROADMAP A14.4, A14.5)")
-
-
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
@@ -142,7 +135,8 @@ SSM_STEP = {"mamba2": ssm_mod.mamba2_step, "mlstm": ssm_mod.mlstm_step,
 class Block(nn.Module):
     """One layer of the plan, the reference's per-layer subtree:
     ``norm1``, then by kind ``attn``, ``norm2`` and ``mlp`` or ``moe``
-    (attention or MLA), ``block`` (an SSM block) or ``down`` (a
+    (attention or MLA; ``cross`` and ``norm_cross`` as well when the
+    layer cross-attends), ``block`` (an SSM block) or ``down`` (a
     shared-attention layer, whose attention weights are the model's
     ``shared_attn``).
     ``parts`` names them."""
@@ -163,6 +157,12 @@ class Block(nn.Module):
                                            cfg.mlp_kind, dtype, device))
             self.parts = ("norm1", "attn", "norm2",
                           "moe" if spec.moe else "mlp")
+            if spec.cross:
+                self.cross = _pdict(attn.init_cross_attn(gen, cfg, dtype,
+                                                         device))
+                self.norm_cross = _pdict(init_norm(cfg.norm, cfg.d_model,
+                                                   dtype, device))
+                self.parts += ("cross", "norm_cross")
         elif spec.kind in SSM_INIT:
             self.block = _pdict(SSM_INIT[spec.kind](gen, cfg, dtype, device))
             self.parts = ("norm1", "block")
@@ -187,10 +187,25 @@ def init_shared_attn(gen, cfg: ArchConfig, dtype, device):
     }
 
 
+class WhisperEncoder(nn.Module):
+    """whisper's encoder: learned positions ``pos`` over ``encoder_seq``
+    frames, ``layers`` (a ``ModuleList`` of attention blocks: ``norm1``,
+    ``attn``, ``norm2``, ``mlp``) and ``final_norm``."""
+
+    def __init__(self, cfg: ArchConfig, gen, dtype, device):
+        super().__init__()
+        self.pos = _pdict(init_learned_positions(gen, cfg.encoder_seq,
+                                                 cfg.d_model, dtype, device))
+        self.layers = nn.ModuleList(
+            Block(cfg, LayerSpec(kind="attn"), gen, dtype, device)
+            for _ in range(cfg.encoder_layers))
+        self.final_norm = _pdict(init_norm(cfg.norm, cfg.d_model, dtype,
+                                           device))
+
+
 class CausalLM(nn.Module):
     def __init__(self, cfg: ArchConfig, gen, device):
         super().__init__()
-        check_supported(cfg)
         dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
         self.embed = _pdict(init_embedding(gen, cfg.vocab_size, cfg.d_model,
@@ -201,6 +216,11 @@ class CausalLM(nn.Module):
             self.lm_head = nn.Parameter(
                 _dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
                             device), requires_grad=False)
+        if cfg.rope_theta == 0.0:           # learned absolute positions
+            self.pos_embed = _pdict(init_learned_positions(
+                gen, cfg.max_seq_len, cfg.d_model, dtype, device))
+        if cfg.encoder_layers:
+            self.encoder = WhisperEncoder(cfg, gen, dtype, device)
         plan = layer_plan(cfg)
         if any(spec.kind == "shared_attn" for spec in plan):
             self.shared_attn = _pdict(init_shared_attn(gen, cfg, dtype,
@@ -227,10 +247,11 @@ def init_params(cfg: ArchConfig, generator=None,
 # ---------------------------------------------------------------------------
 
 def _apply_block(p: Block, cfg: ArchConfig, h, *, positions, h0=None,
-                 shared=None, attention_impl="kernel"):
+                 shared=None, enc_out=None, attention_impl="kernel"):
     """Full-sequence (train / prefill) block application.  Returns
     (h, aux); ``h0`` is the embedding output and ``shared`` the model's
-    ``shared_attn``, both read by a shared-attention layer."""
+    ``shared_attn``, both read by a shared-attention layer; ``enc_out``
+    is the encoder's output, read by a cross-attending layer."""
     use_kernel = attention_impl == "kernel"
     kind = p.spec.kind
     aux = {}
@@ -242,6 +263,9 @@ def _apply_block(p: Block, cfg: ArchConfig, h, *, positions, h0=None,
             h = h + attn.gqa_forward(p.attn, cfg, x, positions,
                                      window=p.spec.window,
                                      attention_impl=attention_impl)
+            if p.spec.cross and enc_out is not None:
+                xc = apply_norm(cfg.norm, p.norm_cross, h, use_kernel)
+                h = h + attn.cross_attn_forward(p.cross, cfg, xc, enc_out)
         x2 = apply_norm(cfg.norm, p.norm2, h, use_kernel)
         if p.spec.moe:
             y2, aux = moe_forward(p.moe, cfg, x2)
@@ -261,12 +285,25 @@ def _apply_block(p: Block, cfg: ArchConfig, h, *, positions, h0=None,
 
 
 def _embed_inputs(params: CausalLM, cfg: ArchConfig, batch):
+    """Returns (h, positions).  ``vision_embeds`` (B, V, d) replace the
+    first V token embeddings; learned positions are added with ids
+    clipped to the table, as the reference clips them."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = F.embedding(tokens, params.embed["table"])
+    if cfg.vision_tokens and "vision_embeds" in batch:
+        vision = batch["vision_embeds"]
+        h = torch.cat([vision.to(h.dtype), h[:, vision.shape[1]:]], dim=1)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        if cfg.rope_kind == "mrope":
+            positions = positions[None].expand(3, B, S)    # text-only M-RoPE
+    if cfg.rope_theta == 0.0:
+        table = params.pos_embed["pos"]
+        ids = torch.arange(S, device=tokens.device).clamp(
+            max=table.shape[0] - 1)
+        h = h + F.embedding(ids, table)[None]
     return h, positions
 
 
@@ -298,10 +335,40 @@ def _cast_block(block: Block):
                             for part in block.parts})
 
 
+def _encoder_layer(p: Block, cfg: ArchConfig, h):
+    """One encoder layer: bidirectional plain attention (no mask, no
+    kernel, as in the reference), then the MLP."""
+    x = apply_norm(cfg.norm, p.norm1, h)
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p.attn["wq"]).reshape(B, S, cfg.num_heads, hd)
+    k = (x @ p.attn["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+    v = (x @ p.attn["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    y = attn.gqa_attention(q, k, v, mask=None)
+    h = h + y.reshape(B, S, -1) @ p.attn["wo"]
+    x2 = apply_norm(cfg.norm, p.norm2, h)
+    return h + apply_mlp(p.mlp, x2, cfg.mlp_kind)
+
+
+def encode(encoder: WhisperEncoder, cfg: ArchConfig, frames, remat=False):
+    """frames: (B, encoder_seq, d), the stubbed conv front end's output in
+    the model's type -> the encoder's final-norm output.  ``remat=True``
+    recomputes each layer in the backward pass."""
+    h = frames + encoder.pos["pos"][None, :frames.shape[1]]
+    for layer in encoder.layers:
+        if remat:
+            h = checkpoint(_encoder_layer, layer, cfg, h, use_reentrant=False)
+        else:
+            h = _encoder_layer(layer, cfg, h)
+    return apply_norm(cfg.norm, encoder.final_norm, h)
+
+
 def forward_hidden(params: CausalLM, cfg: ArchConfig, batch, *,
                    remat=False, attention_impl="kernel"):
     """Train / prefill trunk.  Returns (final-norm hidden states, aux):
     ``aux["load_balance_loss"]`` sums the MoE layers' (0 without MoE).
+    An encoder-decoder encodes ``batch["frames"]`` when the batch has
+    them, and its decoder layers cross-attend to the result.
 
     When a backward pass can follow (gradients enabled, a parameter that
     requires them) each layer's parameters pass through :func:`grad_cast`;
@@ -309,6 +376,9 @@ def forward_hidden(params: CausalLM, cfg: ArchConfig, batch, *,
     (``torch.utils.checkpoint``), so only layer inputs are kept."""
     h, positions = _embed_inputs(params, cfg, batch)
     h0 = h
+    enc_out = None
+    if cfg.encoder_layers and "frames" in batch:
+        enc_out = encode(params.encoder, cfg, batch["frames"], remat=remat)
     shared = getattr(params, "shared_attn", None)
     training = torch.is_grad_enabled() and any(
         p.requires_grad for p in params.parameters())
@@ -316,7 +386,7 @@ def forward_hidden(params: CausalLM, cfg: ArchConfig, batch, *,
     for block in params.blocks:
         p = _cast_block(block) if training else block
         kw = dict(positions=positions, h0=h0, shared=shared,
-                  attention_impl=attention_impl)
+                  enc_out=enc_out, attention_impl=attention_impl)
         if remat:
             h, aux = checkpoint(_apply_block, p, cfg, h, use_reentrant=False,
                                 **kw)
@@ -463,7 +533,7 @@ def init_decode_state(cfg: ArchConfig, batch, max_len, dtype=None,
 
 
 def _decode_block(p: Block, cfg: ArchConfig, h, cache, *, position, h0,
-                  shared):
+                  shared, enc_out=None):
     """One-token decode through a block.  Returns (h, new cache)."""
     kind = p.spec.kind
     x = apply_norm(cfg.norm, p.norm1, h)
@@ -471,6 +541,9 @@ def _decode_block(p: Block, cfg: ArchConfig, h, cache, *, position, h0,
         decode = attn.mla_decode if kind == "mla" else attn.gqa_decode
         y, cache = decode(p.attn, cfg, x, cache, position)
         h = h + y
+        if p.spec.cross and enc_out is not None:
+            xc = apply_norm(cfg.norm, p.norm_cross, h)
+            h = h + attn.cross_attn_forward(p.cross, cfg, xc, enc_out)
         x2 = apply_norm(cfg.norm, p.norm2, h)
         if p.spec.moe:
             y2, _ = moe_forward(p.moe, cfg, x2, dropless=True)
@@ -490,18 +563,25 @@ def _decode_block(p: Block, cfg: ArchConfig, h, cache, *, position, h0,
     return h, cache
 
 
-def decode_step(params: CausalLM, cfg: ArchConfig, tokens, state):
+def decode_step(params: CausalLM, cfg: ArchConfig, tokens, state, *,
+                enc_out=None):
     """tokens: (B, 1) -> (logits (B, 1, V) float32, new state).  KV caches
     are updated in place; SSM layers get new states in the new state's
-    list."""
+    list.  ``enc_out`` is the encoder's output that the cross-attending
+    layers read.  A learned position past the table reads its last row,
+    as the reference's clamped slice does."""
     h = F.embedding(tokens, params.embed["table"])
+    position = state["position"]
+    if cfg.rope_theta == 0.0:
+        table = params.pos_embed["pos"]
+        row = min(position, table.shape[0] - 1)
+        h = h + table[row:row + 1][None]
     h0 = h
     shared = getattr(params, "shared_attn", None)
-    position = state["position"]
     caches = []
     for block, cache in zip(params.blocks, state["caches"]):
         h, cache = _decode_block(block, cfg, h, cache, position=position,
-                                 h0=h0, shared=shared)
+                                 h0=h0, shared=shared, enc_out=enc_out)
         caches.append(cache)
     h = apply_norm(cfg.norm, params.final_norm, h)
     return project_logits(params, cfg, h), {"caches": caches,

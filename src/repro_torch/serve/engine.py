@@ -2,9 +2,11 @@
 generate loop, and the batched request driver :class:`SlotDriver` (port
 of ``repro/serve/engine.py``).
 
-The prefill step runs every attention through K6 and every RMSNorm
-through K5 (``attention_impl="kernel"``); decoding runs its RMSNorms
-through K5.  Caches are updated in place (see ``models/attention.py``).
+The prefill step runs every causal self-attention through K6 and every
+RMSNorm through K5 (``attention_impl="kernel"``); decoding runs its
+RMSNorms through K5.  Caches are updated in place (see
+``models/attention.py``).  An encoder-decoder's serve state carries the
+encoder output ``enc_out`` that every decode step cross-attends to.
 
 :class:`SlotDriver` is continuous-batching-lite: fixed slots, per-slot
 position and active flags, and one call of the step function over the
@@ -193,26 +195,39 @@ def make_prefill_step(cfg: ArchConfig, attention_impl="kernel"):
 
 
 def make_serve_step(cfg: ArchConfig):
-    """serve_step: ONE new token against the KV caches of ``state``."""
+    """serve_step: ONE new token against the KV caches of ``state`` (and
+    its ``enc_out``, which passes through unchanged)."""
     def serve(params, state, tokens):
+        enc_out = state.get("enc_out")
         logits, new_state = M.decode_step(params, cfg, tokens,
-                                          state["decode"])
+                                          state["decode"], enc_out=enc_out)
         next_tok = torch.argmax(logits[:, -1, :], dim=-1)
-        return next_tok, {"decode": new_state}
+        out = {"decode": new_state}
+        if enc_out is not None:
+            out["enc_out"] = enc_out
+        return next_tok, out
     return serve
 
 
 def init_serve_state(cfg: ArchConfig, batch, max_len, dtype=None,
-                     device=DEFAULT_DEVICE):
-    return {"decode": M.init_decode_state(cfg, batch, max_len, dtype,
-                                          device)}
+                     device=DEFAULT_DEVICE, with_encoder=False):
+    """{"decode": the decode state} and, for an encoder-decoder or when
+    ``with_encoder``, a zero ``enc_out`` (batch, encoder_seq, d_model)."""
+    dev = resolve_device(device)
+    state = {"decode": M.init_decode_state(cfg, batch, max_len, dtype, dev)}
+    if with_encoder or cfg.encoder_layers:
+        state["enc_out"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.d_model),
+            dtype=dtype or getattr(torch, cfg.dtype), device=dev)
+    return state
 
 
 def greedy_generate(params, cfg: ArchConfig, prompt_tokens, steps,
-                    max_len=None, device=DEFAULT_DEVICE):
+                    max_len=None, device=DEFAULT_DEVICE, enc_out=None):
     """Feeds each prompt token through ``decode_step``, then decodes
     ``steps`` tokens greedily; returns them, (B, steps) int64.  Runs on
-    ``device`` (the GPU by default), where ``params`` must lie."""
+    ``device`` (the GPU by default), where ``params`` must lie; every
+    step cross-attends to ``enc_out`` when it is given."""
     dev = resolve_device(device)
     weight = params.embed["table"]
     if weight.device.type != dev.type:
@@ -225,11 +240,13 @@ def greedy_generate(params, cfg: ArchConfig, prompt_tokens, steps,
                                 weight.device)
     for t in range(S):
         logits, state = M.decode_step(params, cfg,
-                                      prompt_tokens[:, t:t + 1], state)
+                                      prompt_tokens[:, t:t + 1], state,
+                                      enc_out=enc_out)
     out = []
     tok = torch.argmax(logits[:, -1:, :], dim=-1)
     for _ in range(steps):
         out.append(tok)
-        logits, state = M.decode_step(params, cfg, tok, state)
+        logits, state = M.decode_step(params, cfg, tok, state,
+                                      enc_out=enc_out)
         tok = torch.argmax(logits[:, -1:, :], dim=-1)
     return torch.cat(out, dim=1)

@@ -929,3 +929,59 @@ def test_moe_ties_and_drops_on_the_card(cuda_device):
         for k in want_aux:
             torch.testing.assert_close(aux[k].cpu(), want_aux[k], atol=1e-5,
                                        rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_at_whisper_shape(cuda_device):
+    """K6 in bfloat16 at whisper-small's decoder prefill, (4, 12, 448, 64)
+    causal: 448 rows are ragged against the 128-row q tiles."""
+    kernels.reset_launch_counts()
+    g = torch.Generator(device=cuda_device).manual_seed(448)
+    q, k, v = (torch.randn(4, 448, 12, 64, device=cuda_device,
+                           generator=g).to(torch.bfloat16) for _ in range(3))
+    a = kfa.flash_attention(q, k, v, True, 0).float()
+    b = kfa.attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), True, 0).transpose(1, 2)
+    b = b.float()
+    assert bool(((a - b).abs() <= 2e-2 + 2e-2 * b.abs()).all())
+    assert kernels.launch_counts()["flash_attention"] == 1
+
+
+# per prefill on the reduced configs: whisper (LayerNorm, 2 causal decoder
+# layers; the encoder and cross-attention are plain), qwen2-vl (2 layers)
+REDUCED_MULTIMODAL_LAUNCHES = {"whisper-small": (0, 2),
+                               "qwen2-vl-72b": (5, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(REDUCED_MULTIMODAL_LAUNCHES))
+def test_multimodal_prefill_on_the_card_matches_the_cpu(arch, cuda_device):
+    """Reduced float32 models from the same weights, with whisper's frames
+    or qwen2-vl's vision embeddings and grid positions: the card (K5, K6)
+    against the CPU (plain versions), prefill logits within 1e-4, with
+    the predicted K5/K6 launches."""
+    from _torch_mrope import grid_positions
+    from repro_torch import interop
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    cfg = get_arch(arch).reduced()
+    lm = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    on_card = interop.lm_params(cfg, interop.lm_tree(lm), cuda_device)
+    g = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     generator=g)}
+    if cfg.encoder_layers:
+        batch["frames"] = 0.1 * torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                            generator=g)
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = 0.02 * torch.randn(
+            2, cfg.vision_tokens, cfg.d_model, generator=g)
+        batch["positions"] = grid_positions(2, 40, cfg.vision_tokens)
+    kernels.reset_launch_counts()
+    got, _ = M.forward(on_card, cfg,
+                       {k: v.to(cuda_device) for k, v in batch.items()})
+    assert (kernels.launch_counts()["rmsnorm"],
+            kernels.launch_counts()["flash_attention"]) \
+        == REDUCED_MULTIMODAL_LAUNCHES[arch]
+    want, _ = M.forward(lm, cfg, batch)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

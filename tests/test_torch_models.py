@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ARCH_IDS
 from repro.configs.registry import get_arch as ref_get_arch
 from repro.models import model as RM
 from repro_torch import interop
@@ -120,10 +121,16 @@ def test_full_gemma3_param_count():
     assert all(p.dtype == torch.bfloat16 for p in lm.parameters())
 
 
-@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-72b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        M.init_params(get_arch(arch).reduced(), device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_builds(arch):
+    """Every arch of the registry builds at its reduced config, with the
+    reference's parameter count."""
+    cfg = get_arch(arch).reduced()
+    lm = M.init_params(cfg, device="cpu")
+    shapes = jax.eval_shape(lambda: RM.init_params(
+        jax.random.PRNGKey(0), ref_get_arch(arch).reduced()))
+    assert sum(p.numel() for p in lm.parameters()) == sum(
+        int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
 
 
 def test_layers_match_reference():

@@ -319,15 +319,8 @@ def test_full_gemma3_reference_leaves():
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_analytic_matches_reference(arch):
-    """Every shape of every arch the port builds: the reference's counts
-    exactly; the others raise NotImplementedError."""
+    """Every shape of every arch: the reference's counts exactly."""
     cfg = get_arch(arch)
-    try:
-        M.check_supported(cfg)
-    except NotImplementedError:
-        with pytest.raises(NotImplementedError):
-            A.param_counts(cfg)
-        return
     assert A.param_counts(cfg) == RA.param_counts(ref_get_arch(arch))
     for name, shape in INPUT_SHAPES.items():
         assert A.model_flops(cfg, shape) == RA.model_flops(
