@@ -122,7 +122,7 @@
 6b. Phase families: gemma3-1b is freed (the bytes still allocated are
    printed), then xlstm-350m and zamba2-1.2b at full width and depth,
    arctic-480b at full width and 2 layers (its 35 do not fit),
-   qwen1.5-110b at full width and 4 layers, deepseek-v2-236b at full
+   qwen1.5-110b at full width and 2 layers, deepseek-v2-236b at full
    width and 7 layers (the dense layer and 6 MoE layers of 160 experts),
    whisper-small uncut and qwen2-vl-72b at full width and 4 layers are
    served in bfloat16 from seed 0 as in phase 5, one after another (whisper
@@ -182,9 +182,27 @@
    relative), 3 gossip steps at R = 4 (within 1e-3); and one sync step's
    loss and every gradient leaf of reduced zamba2-1.2b and xlstm-350m
    (within 1e-4 relative, a leaf to its largest magnitude).
+9b. Phase shard, in a child process (its process group dies with it): a
+   1-rank NCCL group and ``make_debug_mesh(data=1, model=1)``; full-width
+   gemma3-1b in bfloat16 from phase train's seeds: 3 sharded sync steps
+   of 8 x 1024 tokens against 3 ``mesh=None`` steps (losses within 1e-4
+   relative), the sharded prefill (reference arithmetic) against the
+   unsharded one (2e-2 relative L2), 4 mesh gossip steps at R = 1
+   against the stacked step at R = 1 (losses within 1e-3; K3 and K4
+   exactly 2 x 83 launches a step in both), K5/K6 never; each path's step
+   ms side by side.
+9c. Phase dryrun, in a child process: a fake 256-rank group, the
+   production mesh (data 32, model 8), ``launch.dryrun``'s ``lower_pair``
+   and ``analyze`` at full width, depth cut to 2 layers (gemma3 6), for
+   qwen1.5-110b train_4k and decode_32k, arctic-480b train_4k and
+   gemma3-1b prefill_32k: one line each (flops and argument GB per
+   device, the collective schedule, the time terms); argument bytes must
+   equal the spec-placed shard bytes, the train steps must all-gather and
+   reduce-scatter, the decode step must all-reduce and gather no whole
+   weight.
 10. Prints one JSON line with each kernel's numbers (the sweep kernels'
    launches also per spec, per report spec and in all for the report,
-   and per service path, K3/K4's per path, their
+   and per service path, K3/K4's per path (the mesh gossip's too), their
    record at the gossip's largest leaf, K5/K6's per family), then the
    final line
    ``{"ok": true, "device": {...}}``.
@@ -228,7 +246,7 @@ SERVE_KERNELS = ("rmsnorm", "flash_attention")
 FAMILIES = (("xlstm-350m", None, 24, 0),      # 21 mLSTM + 3 sLSTM gated
             ("zamba2-1.2b", None, 77, 6),     # 38 + 6 + 1 + 32 gated
             ("arctic-480b", 2, 5, 2),         # 2 * 2 + 1
-            ("qwen1.5-110b", 4, 9, 4),        # 2 * 4 + 1
+            ("qwen1.5-110b", 2, 5, 2),        # 2 * 2 + 1
             ("deepseek-v2-236b", 7, 15, 0),   # 2 * 7 + 1: dense + 6 MoE
             ("whisper-small", None, 0, 12),   # 12 decoder layers
             ("qwen2-vl-72b", 4, 9, 4))        # 2 * 4 + 1
@@ -1123,7 +1141,7 @@ def _as_float32(batch):
 
 def run_families(dev):
     """Phase families: xlstm-350m and zamba2-1.2b at full width and depth,
-    arctic-480b at full width and 2 layers, qwen1.5-110b at 4,
+    arctic-480b at full width and 2 layers, qwen1.5-110b at 2,
     deepseek-v2-236b at 7 (its dense layer and 6 MoE layers), whisper-small
     uncut and qwen2-vl-72b at 4, bfloat16, random weights from seed 0.
     For each: a prefill of ``_family_batch`` (4 x 2048 tokens; whisper's
@@ -2599,6 +2617,260 @@ def _ptxas_summary(text: str):
     return lines
 
 
+# phase shard: the sharded steps on a 1-rank NCCL group (one card), from
+# phase train's seeded weights, against the same steps with mesh=None
+SHARD_SYNC_STEPS, SHARD_GOSSIP_STEPS = 3, 4
+SHARD_PREFILL = (4, 2048)
+# phase dryrun: fake 256-rank production mesh, full width, depth cut per
+# segment to SHARD_DRYRUN_LAYERS layers (at least one of each layer kind)
+SHARD_DRYRUN_PAIRS = (("qwen1.5-110b", "train_4k"),
+                      ("qwen1.5-110b", "decode_32k"),
+                      ("arctic-480b", "train_4k"),
+                      ("gemma3-1b", "prefill_32k"))
+SHARD_DRYRUN_LAYERS = 2
+
+
+def _child_phase(root, name, timeout):
+    """Runs ``chip_smoke.py --phase NAME OUT`` in a child process (its
+    process group dies with it) and returns the JSON it wrote; a failing
+    child fails the phase."""
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        out = os.path.join(tmp, f"{name}.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--phase", name,
+             out], capture_output=True, text=True, timeout=timeout,
+            cwd=root)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase {name} child exited "
+                                 f"{proc.returncode}: {proc.stderr[-4000:]}")
+        with open(out) as f:
+            return json.load(f)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def shard_child(out):
+    """Phase shard's child: a 1-rank NCCL group on cuda:0 and
+    ``make_debug_mesh(data=1, model=1)``.  Full-width gemma3-1b in bf16
+    from phase train's seeded weights: ``SHARD_SYNC_STEPS`` sharded sync
+    steps of 8 x 1024 hmm_stream tokens against as many ``mesh=None``
+    steps (losses within 1e-4 relative); the sharded prefill step
+    (``attention_impl="reference"``) against the unsharded one (2e-2
+    relative L2); ``SHARD_GOSSIP_STEPS`` mesh gossip steps at R = 1
+    against the stacked step at R = 1 (losses within 1e-3), K3 and K4
+    each launching exactly 2 x 83 times a step in both, as the stacked
+    step does.  K5 and K6 launch 0 times on every sharded path.  Each
+    path's step ms (host clock; each step's loss is read)."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch import random as R
+    from repro_torch import tree as T
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.lm import LMConfig, hmm_stream
+    from repro_torch.distributed import rules as RU
+    from repro_torch.distributed.mesh import make_debug_mesh
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    from repro_torch.train import steps as S
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    build.extension()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_debug_mesh(data=1, model=1)
+        cfg = get_arch("gemma3-1b")
+        lm = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+        batch = next(hmm_stream(R.PRNGKey(1), LMConfig(
+            cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 1, device=dev))
+        report = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                  "backend": dist.get_backend()}
+
+        def timed(fn, n):
+            out, ms = [], []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out.append(fn())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return out, ms
+
+        def counted(fn):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, kernels.launch_counts()
+
+        # sync: mesh=None, then sharded, from the same weights
+        sync = {}
+        for name, m in (("unsharded", None), ("sharded", mesh)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            st = [S.init_train_state(cfg, "sync", params=lm, mesh=m)]
+            step = S.make_train_step(cfg, m, lr=TRAIN_LR)
+
+            def one():
+                st[0], metrics = step(st[0], batch)
+                return float(metrics["loss"])
+            (losses, ms), launches = counted(
+                lambda: timed(one, SHARD_SYNC_STEPS))
+            sync[name] = {"losses": losses, "step_ms": ms,
+                          "median_step_ms": statistics.median(ms[1:]),
+                          "launches": {k: v for k, v in launches.items()
+                                       if v}}
+            if any(launches.values()):
+                raise AssertionError(f"sync {name} launched kernels: "
+                                     f"{launches}")
+            del st, step, one      # ``one`` holds the state too
+        rel = max(abs(a - b) / abs(a) for a, b in zip(
+            sync["unsharded"]["losses"], sync["sharded"]["losses"]))
+        sync["max_rel_loss_diff"] = rel
+        if rel > 1e-4:
+            raise AssertionError(f"sharded sync losses differ by {rel}: "
+                                 f"{sync}")
+        report["sync"] = sync
+
+        # prefill: reference arithmetic both ways
+        gc.collect()
+        torch.cuda.empty_cache()
+        B, L = SHARD_PREFILL
+        prompt = {"tokens": batch["tokens"][:B].repeat(1, L // TRAIN_SEQ)}
+        slm = E.shard_params(lm, mesh)
+        pf0 = E.make_prefill_step(cfg, "reference")
+        pf1 = E.make_prefill_step(cfg, "reference",
+                                  constrain=RU.act_constraint(mesh))
+        with torch.no_grad():
+            (l0, ms0), n0 = counted(lambda: timed(lambda: pf0(lm, prompt), 3))
+            (l1, ms1), n1 = counted(lambda: timed(lambda: pf1(slm, prompt),
+                                                  3))
+        err = float(torch.linalg.vector_norm(l1[-1].float() - l0[-1].float())
+                    / torch.linalg.vector_norm(l0[-1].float()))
+        report["prefill"] = {"tokens": [B, L], "rel_l2": err,
+                             "unsharded_ms": ms0, "sharded_ms": ms1}
+        if err > 2e-2 or any(n0.values()) or any(n1.values()):
+            raise AssertionError(f"sharded prefill: rel L2 {err}, launches "
+                                 f"{n0} / {n1}")
+        del slm, l0, l1
+
+        # gossip: the mesh step at R = 1 against the stacked step at R = 1
+        gossip = {}
+        gbatch = next(hmm_stream(R.PRNGKey(2), LMConfig(
+            cfg.vocab_size, GOSSIP_SEQ, GOSSIP_BATCH), 1, device=dev))
+        for name, m in (("stacked", None), ("mesh", mesh)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            st = [S.init_gossip_state(cfg, 1, params=lm, mesh=m)]
+            n_leaves = len(T.flatten(st[0]["y"])[0])
+            step = S.make_gossip_step(cfg, m, replicas=None if m else 1,
+                                      lr=GOSSIP_LR)
+
+            def one():
+                st[0], metrics = step(st[0], gbatch)
+                return float(metrics["loss"])
+            (losses, ms), launches = counted(
+                lambda: timed(one, SHARD_GOSSIP_STEPS))
+            want = {**{k: 0 for k in launches},
+                    "quantize_rows": 2 * n_leaves * SHARD_GOSSIP_STEPS,
+                    "dequantize_rows": 2 * n_leaves * SHARD_GOSSIP_STEPS}
+            if launches != want:
+                raise AssertionError(f"gossip {name} launched {launches}, "
+                                     f"expected {want}")
+            gossip[name] = {"losses": losses, "step_ms": ms,
+                            "median_step_ms": statistics.median(ms[1:]),
+                            "launches": {k: v for k, v in launches.items()
+                                         if v}}
+            del st, step, one
+        diff = max(abs(a - b) for a, b in zip(gossip["stacked"]["losses"],
+                                              gossip["mesh"]["losses"]))
+        gossip["leaves"] = n_leaves
+        gossip["max_abs_loss_diff"] = diff
+        if diff > 1e-3:
+            raise AssertionError(f"mesh gossip losses differ by {diff}: "
+                                 f"{gossip}")
+        report["gossip"] = gossip
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(report, f)
+
+
+def dryrun_child(out):
+    """Phase dryrun's child: a fake 256-rank group and the production
+    mesh (data 32, model 8); ``lower_pair`` and ``analyze`` at full width
+    for ``SHARD_DRYRUN_PAIRS``, depth cut to ``SHARD_DRYRUN_LAYERS``
+    layers (the cut is printed beside each line).  Asserts: argument
+    bytes equal the sum of the spec-placed shard bytes; the FSDP train
+    steps all-gather and reduce-scatter; the decode step (with
+    ``decode_act_constraint``) all-reduces and gathers no whole
+    weight."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.distributed.mesh import make_production_mesh
+    from repro_torch.launch import specs as SP
+
+    D.start_fake_group(256)
+    mesh = make_production_mesh(device_type="cpu")
+    report = {}
+    for arch, shape in SHARD_DRYRUN_PAIRS:
+        t0 = time.perf_counter()
+        low, meta = D.lower_pair(arch, shape, mesh,
+                                 layers=SHARD_DRYRUN_LAYERS)
+        rec = D.comm_stats.CommRecorder(mesh)
+        res = D.analyze(low, mesh, verbose=False, recorder=rec)
+        res["spec_bytes"] = D.spec_bytes(low.placed)
+        res["layers"] = meta["cfg"].num_layers
+        res["full_layers"] = D.arch_for_pair(arch, shape).num_layers
+        res["host_s"] = time.perf_counter() - t0
+        if res["argument_size_in_bytes"] != res["spec_bytes"]:
+            raise AssertionError(f"{arch} {shape}: argument bytes "
+                                 f"{res['argument_size_in_bytes']} != spec "
+                                 f"bytes {res['spec_bytes']}")
+        coll = res["collectives"]
+        if meta["shape"].mode == "train" and not (
+                coll.get("all-gather") and coll.get("reduce-scatter")):
+            raise AssertionError(f"{arch} {shape}: no FSDP all-gather / "
+                                 f"reduce-scatter: {coll}")
+        if meta["shape"].mode == "decode":
+            weights = {int(x[0].numel()) if n == 0 else int(x.numel())
+                       for x, n in _layer_weights(SP.param_shapes(
+                           meta["cfg"]))}
+            gathered = [e for e in rec.collectives
+                        if e["kind"] == "all-gather"
+                        and math.prod(e["shape"]) in weights]
+            if not coll.get("all-reduce") or gathered:
+                raise AssertionError(f"{arch} {shape}: all-reduce "
+                                     f"{coll.get('all-reduce')}, whole "
+                                     f"weights gathered {gathered[:4]}")
+        report[f"{arch}|{shape}"] = res
+    with open(out, "w") as f:
+        json.dump(report, f)
+
+
+def _layer_weights(tree):
+    """(leaf, 0) for each stacked matrix of a parameter tree (its one
+    layer's slice is a whole weight) and (leaf, 1) for the others of rank
+    2 and more."""
+    from repro_torch import tree as T
+    out = []
+    for path, x in T.flatten_with_path(tree):
+        stacked = "segments" in path or "layers" in path
+        if x.ndim - stacked >= 2:
+            out.append((x, 0 if stacked else 1))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2608,6 +2880,11 @@ def main() -> int:
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         return _fail(f"no repro_torch package under {src}")
     sys.path.insert(0, src)
+    if sys.argv[1:2] == ["--phase"]:
+        # a child phase (phase shard / phase dryrun): its own process
+        {"shard": shard_child, "dryrun": dryrun_child}[sys.argv[2]](
+            sys.argv[3])
+        return 0
     from repro_torch import kernels
     from repro_torch.device import resolve_device
     from repro_torch.experiments import registry, runner
@@ -2884,6 +3161,53 @@ def main() -> int:
     print(f"phase train-vs-cpu: ok in {time.perf_counter() - t0:.2f}s "
           f"{json.dumps(train_agreement)}", flush=True)
 
+    # the child phases share the card: hand back this process's cached
+    # blocks first (phase gossip alone peaked near 30 GB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase shard: this process holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved",
+          flush=True)
+    t0 = time.perf_counter()
+    shard = _child_phase(root, "shard", timeout=900)
+    print(f"phase shard: ok in {time.perf_counter() - t0:.2f}s [{card}] "
+          f"mesh {json.dumps(shard['mesh'])} ({shard['backend']}, one "
+          f"rank) gemma3-1b bf16", flush=True)
+    sync, gossip_m = shard["sync"], shard["gossip"]
+    print(f"  shard sync {TRAIN_BATCH}x{TRAIN_SEQ} step ms unsharded / "
+          f"sharded {json.dumps(sync['unsharded']['step_ms'])} / "
+          f"{json.dumps(sync['sharded']['step_ms'])} losses "
+          f"{json.dumps(sync['unsharded']['losses'])} / "
+          f"{json.dumps(sync['sharded']['losses'])} max rel diff "
+          f"{sync['max_rel_loss_diff']}", flush=True)
+    print(f"  shard prefill {json.dumps(shard['prefill'])}", flush=True)
+    print(f"  shard gossip R=1 {GOSSIP_BATCH}x{GOSSIP_SEQ} step ms stacked "
+          f"/ mesh {json.dumps(gossip_m['stacked']['step_ms'])} / "
+          f"{json.dumps(gossip_m['mesh']['step_ms'])} losses "
+          f"{json.dumps(gossip_m['stacked']['losses'])} / "
+          f"{json.dumps(gossip_m['mesh']['losses'])} max abs diff "
+          f"{gossip_m['max_abs_loss_diff']} launches "
+          f"{json.dumps(gossip_m['mesh']['launches'])}", flush=True)
+
+    t0 = time.perf_counter()
+    dry = _child_phase(root, "dryrun", timeout=600)
+    print(f"phase dryrun: ok in {time.perf_counter() - t0:.2f}s, fake "
+          f"256-rank (data 32, model 8) mesh, H100 constants", flush=True)
+    for key, res in dry.items():
+        sched = ", ".join(f"{k} x{v['count']} ({v['bytes'] / 1e9:.3f} GB)"
+                          for k, v in sorted(res["collectives"].items()))
+        print(f"  dryrun {key} layers {res['layers']} of "
+              f"{res['full_layers']} (depth cut) host_s "
+              f"{res['host_s']:.1f} flops/device "
+              f"{res['flops_per_device']:.4e} args GB/device "
+              f"{res['argument_size_in_bytes'] / 1e9:.4f} collectives "
+              f"[{sched}] by axes {json.dumps(res['collective_bytes_by_axes'])}"
+              f" terms s compute {res['compute_term_s']:.5f} memory "
+              f"{res['memory_term_s']:.5f} collective "
+              f"{res['collective_term_s']:.5f} dominant "
+              f"{res['dominant_term']}", flush=True)
+
     for name, rec in records.items():
         # K3/K4's path is the gossip step; every other kernel's the sweep's
         # or serving's
@@ -2905,6 +3229,7 @@ def main() -> int:
         if name in FUSED_AWAY:
             rec["launches_by_path"] = {
                 "gossip": gossip_launches[name],
+                "gossip_mesh": gossip_m["mesh"]["launches"].get(name, 0),
                 **{f"train_{s}": train[s]["launches"][name] for s in train}}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -12,3 +12,19 @@ versions serve CPU tensors and act as the kernels' oracles.
 """
 
 from repro_torch.device import resolve_device  # noqa: F401
+
+#: the reference's modules with no port of that name, and why: every other
+#: module of ``repro`` has a counterpart here by path, and every name a
+#: ``repro`` package exports resolves in the port's package of that path
+#: (``tests/test_torch_surface.py`` reads this list)
+NOT_PORTED = {
+    "kernels.ops": "the jnp / Pallas dispatch of the reference's kernels; "
+                   "the port's wrappers live beside each kernel "
+                   "(kernels/csim.py, quantize.py, rmsnorm.py, "
+                   "flash_attention.py)",
+    "kernels.ref": "the reference's pure-jnp kernel references; each port "
+                   "kernel module holds its plain PyTorch version",
+    "launch.hlo_stats": "parses compiled HLO text, which an eager port has "
+                        "none of; launch/comm_stats.py records the same "
+                        "statistics as the step runs",
+}

@@ -45,6 +45,19 @@ def gain_growth_from_costs(costs: List[float]) -> List[float]:
     return [costs[i] - costs[i + 1] for i in range(len(costs) - 1)]
 
 
+def gain_growth_from_losses(results: List[Dict], at_iteration: int):
+    """First definition: loss(m) - loss(m+1) at a fixed server iteration.
+
+    The eval index clamps to [0, n_evals): iterations below one eval
+    period read the first eval and iterations beyond the budget read the
+    last."""
+    vals = []
+    for r in results:
+        i = min(at_iteration // r["eval_every"], len(r["losses"])) - 1
+        vals.append(float(r["losses"][max(i, 0)]))
+    return [vals[i] - vals[i + 1] for i in range(len(vals) - 1)]
+
+
 def measured_upper_bound(ms: List[int], gain_growths: List[float],
                          threshold: float = 0.0) -> int:
     """First m whose gain growth drops to <= threshold (the lower of the

@@ -13,9 +13,12 @@ run one after another, the port's counterpart of the reference's
 is an execution resource, never part of result identity: spec
 fingerprints exclude it.
 
-The model stack's named meshes (``make_production_mesh`` /
-``make_debug_mesh``) belong with the FSDP/TP rules and are not part of
-this module.
+**Model-stack meshes** (:func:`make_production_mesh`,
+:func:`make_debug_mesh`): the named ('pod', 'data', 'model') torch
+``DeviceMesh``es that `repro_torch.distributed.rules` lays FSDP/TP
+placements over, built over the process group in force (a real NCCL or
+gloo group, or a fake one for the dry run).  They are functions: importing
+this module starts no process group.
 """
 
 from __future__ import annotations
@@ -123,3 +126,63 @@ def resolve(mesh: MeshLike, *, device=None) -> Optional[DeviceMesh]:
     if mesh is None:
         return None
     return get_mesh(mesh, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Model-stack meshes
+# ---------------------------------------------------------------------------
+
+#: the production mesh's (data, model) shape: 256 H100s as 32 nodes of 8,
+#: 'model' inside one node's NVLink domain (the reference's TPU pod is 16x16)
+PRODUCTION_SHAPE = (32, 8)
+
+
+def _named_mesh(shape, names, device_type):
+    from torch.distributed.device_mesh import init_device_mesh as _init
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return _init(device_type, tuple(shape), mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """256 ranks as (data 32, model 8), or 512 as (pod 2, data 32, model 8)
+    with ``multi_pod``, over the process group in force (its world size
+    must match).
+
+    The reference's production mesh is a TPU pod's 16 x 16 torus, whose
+    links are alike along both axes.  An H100 machine has two tiers: 8
+    GPUs of one node joined all to all by NVLink, and nodes joined by the
+    network at about a ninth of that rate.  Tensor parallelism ('model')
+    sends activations every layer, FSDP ('data') sends weights once a
+    layer, so 'model' gets the fast tier: 8 wide, one node, and 'data'
+    spans the 32 nodes."""
+    data, model = PRODUCTION_SHAPE
+    if multi_pod:
+        return _named_mesh((2, data, model), ("pod", "data", "model"),
+                           device_type)
+    return _named_mesh((data, model), ("data", "model"), device_type)
+
+
+def make_debug_mesh(data=2, model=2, pod=0, *, device_type=None):
+    """A small (data, model) mesh, or (pod, data, model) when ``pod``,
+    over the process group in force."""
+    if pod:
+        return _named_mesh((pod, data, model), ("pod", "data", "model"),
+                           device_type)
+    return _named_mesh((data, model), ("data", "model"), device_type)
+
+
+def is_model_mesh(mesh) -> bool:
+    """True for a named torch ``DeviceMesh`` (a model-stack mesh)."""
+    from torch.distributed.device_mesh import DeviceMesh as _TorchMesh
+    return isinstance(mesh, _TorchMesh) and mesh.mesh_dim_names is not None
+
+
+def check_model_mesh(mesh):
+    """``mesh`` itself when it is None or a named torch ``DeviceMesh``;
+    raises TypeError for anything else."""
+    if mesh is not None and not is_model_mesh(mesh):
+        raise TypeError(f"mesh must be a named torch DeviceMesh "
+                        f"(make_debug_mesh / make_production_mesh) or "
+                        f"None, not {type(mesh).__name__}")
+    return mesh

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core.algorithms.lr import LAMBDA
 from repro_torch import random as R
 from repro_torch.core import problems as problems_mod
 from repro_torch.core.algorithms import base as alg_base
@@ -256,3 +257,74 @@ def sweep(algorithm: Union[str, alg_base.Algorithm], train, test,
             losses = torch.stack(rows)
     return _losses_dict(alg.name, ms, losses, iters, eval_every,
                         problem=prob.name, n_seeds=n_seeds)
+
+
+# ---------------------------------------------------------------------------
+# The reference's per-algorithm entry points (same signatures and defaults)
+# ---------------------------------------------------------------------------
+
+def sweep_minibatch(train, test, ms: Sequence[int], *, iters: int,
+                    eval_every: int, gamma=0.1, lam=LAMBDA, key=None,
+                    use_vmap=True, bucketed=True, n_seeds=1,
+                    problem="logistic", mesh=None) -> Dict:
+    return sweep("minibatch", train, test, ms, iters=iters,
+                 eval_every=eval_every, problem=problem, lam=lam, key=key,
+                 per_m=not use_vmap, bucketed=bucketed, n_seeds=n_seeds, mesh=mesh, gamma=gamma)
+
+
+def sweep_ecd_psgd(train, test, ms: Sequence[int], *, iters: int,
+                   eval_every: int, gamma=0.1, lam=LAMBDA, compress_bits=8,
+                   key=None, use_vmap=True, bucketed=True, n_seeds=1,
+                   problem="logistic", mesh=None) -> Dict:
+    return sweep("ecd_psgd", train, test, ms, iters=iters,
+                 eval_every=eval_every, problem=problem, lam=lam, key=key,
+                 per_m=not use_vmap, bucketed=bucketed, n_seeds=n_seeds, mesh=mesh, gamma=gamma,
+                 compress_bits=compress_bits)
+
+
+def sweep_dadm(train, test, ms: Sequence[int], *, iters: int, eval_every: int,
+               local_batch=8, lam=LAMBDA, key=None, use_vmap=True,
+               bucketed=False, n_seeds=1, problem="logistic",
+               mesh=None) -> Dict:
+    return sweep("dadm", train, test, ms, iters=iters,
+                 eval_every=eval_every, problem=problem, lam=lam, key=key,
+                 per_m=not use_vmap, bucketed=bucketed, n_seeds=n_seeds, mesh=mesh,
+                 local_batch=local_batch)
+
+
+def sweep_hogwild(train, test, ms: Sequence[int], *, iters: int,
+                  eval_every: int, gamma=0.1, lam=LAMBDA, key=None,
+                  use_vmap=True, bucketed=True, n_seeds=1,
+                  problem="logistic", mesh=None, fault=None) -> Dict:
+    del bucketed   # Hogwild! runs flat: its work is O(iters * d) for any m
+    return sweep("hogwild", train, test, ms, iters=iters,
+                 eval_every=eval_every, problem=problem, lam=lam, key=key,
+                 per_m=not use_vmap, n_seeds=n_seeds, mesh=mesh, gamma=gamma, fault=fault)
+
+
+SWEEPERS = {
+    "minibatch": sweep_minibatch,
+    "ecd_psgd": sweep_ecd_psgd,
+    "dadm": sweep_dadm,
+    "hogwild": sweep_hogwild,
+}
+
+
+def run_algorithm_sweep(algorithm: str, train, test, ms, *, iters,
+                        eval_every, use_vmap=True, bucketed=None, n_seeds=1,
+                        mesh=None, **kwargs) -> Dict:
+    """One (algorithm, problem, dataset) job over the worker grid: the
+    four paper algorithms through their ``sweep_*`` entry points, every
+    other registered one through :func:`sweep`.  ``bucketed=None`` keeps
+    each algorithm's own default; ``use_vmap=False`` runs each m alone
+    (``per_m``)."""
+    fn = SWEEPERS.get(algorithm)
+    if fn is None:
+        return sweep(algorithm, train, test, ms, iters=iters,
+                     eval_every=eval_every, per_m=not use_vmap,
+                     bucketed=bucketed, n_seeds=n_seeds, mesh=mesh,
+                     **kwargs)
+    if bucketed is not None:
+        kwargs["bucketed"] = bucketed
+    return fn(train, test, list(ms), iters=iters, eval_every=eval_every,
+              use_vmap=use_vmap, n_seeds=n_seeds, mesh=mesh, **kwargs)

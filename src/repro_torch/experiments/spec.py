@@ -25,6 +25,11 @@ from repro_torch.core import problems as problems_mod
 from repro_torch.core.algorithms import base as alg_base
 from repro_torch.data import synth
 
+#: import-time snapshots for display (validation reads the live
+#: registries, so late registrations are usable), as in the reference
+ALGORITHMS = alg_base.registered_algorithms()
+PROBLEMS = tuple(sorted(problems_mod.PROBLEMS))
+
 #: Hashed into every fingerprint; bump when engine numerics change.
 #:   1: the first port slice (upper_bound on the batched torch engine)
 ENGINE_VERSION = 1

@@ -23,7 +23,9 @@ values, as in the reference, and decoding recomputes its keys and values
 over the whole encoder output at every step.
 
 Unlike the reference, :func:`gqa_decode` and :func:`mla_decode` write the
-new entries into their cache in place and return the same cache.
+new entries into their cache in place and return the same cache; on a
+mesh the rank that holds the slot writes it (``distributed.local.
+write_slot``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import local as DL
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.models.layers import _dense_init, apply_mrope, apply_rope
 
@@ -121,13 +124,20 @@ def gqa_attention(q, k, v, mask=None):
 
     Decode (S == 1) keeps the grouped form (no KV repeat).  Long sequences
     (S > Q_CHUNK, a multiple of it) are tiled over q rows so live score
-    buffers stay (B, H, Q_CHUNK, T), as in the reference.
+    buffers stay (B, H, Q_CHUNK, T), as in the reference.  On a mesh a
+    full sequence runs shard by shard (``distributed.local.attention``:
+    heads, or q's rows, over 'model'); a decode step's scores and
+    weighted sum propagate over its sequence-sharded cache.
     """
+    if q.shape[1] == 1 and DL.sequence_sharded(k):
+        return _decode_sequence_sharded(q, k, v, mask)
+    if DL.is_dtensor(q):
+        return DL.attention(gqa_attention, q, k, v, mask)
     B, S, H, D = q.shape
     KV = k.shape[2]
     if S == 1 and KV != H:
         G = H // KV
-        qg = q.reshape(B, KV, G, D)
+        qg = DL.split_dim(q.reshape(B, H, D), 1, KV, (B, KV, G, D))
         scores = torch.einsum("bkgd,btkd->bkgt", qg, k).to(torch.float32)
         scores = scores / math.sqrt(D)
         if mask is not None:           # (B,1,1,T) -> (B,1,1,T) broadcast
@@ -156,6 +166,25 @@ def gqa_attention(q, k, v, mask=None):
     return torch.cat(chunks, dim=1)
 
 
+def _decode_sequence_sharded(q, k, v, mask):
+    """:func:`gqa_attention`'s decode form against a cache sharded on its
+    sequence (``distributed.local.sequence_attention``)."""
+    B, _, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = DL.split_dim(q.reshape(B, H, D), 1, KV, (B, KV, G, D))
+    m = None
+    if mask is not None:       # (B,1,1,T) -> (B,1,1,T) broadcast
+        m = mask[:, :, 0, None, :] if mask.dim() == 4 else mask
+    out = DL.sequence_attention(
+        (qg,), (k,), (v,), m,
+        lambda q_, k_: torch.einsum("bkgd,btkd->bkgt", q_[0], k_).to(
+            torch.float32),
+        lambda w, v_: torch.einsum("bkgt,btkd->bkgd", w, v_),
+        math.sqrt(D))
+    return out.reshape(B, 1, H, v.shape[-1])
+
+
 def _rope_any(cfg, x, positions):
     if cfg.rope_theta == 0.0:
         return x            # learned absolute positions (whisper)
@@ -171,13 +200,13 @@ def _rope_any(cfg, x, positions):
 def _project_qkv(p, cfg, x):
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = DL.matmul(x, p["wq"])
+    k = DL.matmul(x, p["wk"])
+    v = DL.matmul(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, h, hd), k.reshape(B, S, kv, hd),
-            v.reshape(B, S, kv, hd))
+    return (DL.split_heads(q, B, S, h, hd), DL.split_heads(k, B, S, kv, hd),
+            DL.split_heads(v, B, S, kv, hd))
 
 
 def gqa_forward(p, cfg: ArchConfig, x, positions, *, window=0,
@@ -195,7 +224,7 @@ def gqa_forward(p, cfg: ArchConfig, x, positions, *, window=0,
     else:
         mask = causal_mask(S, S, window=window, device=x.device)[None, None]
         out = gqa_attention(q, k, v, mask)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return DL.matmul(DL.merge_heads(out, B, S, -1), p["wo"])
 
 
 @dataclasses.dataclass
@@ -231,15 +260,15 @@ def gqa_decode(p, cfg: ArchConfig, x, cache: KVCache, position: int):
     q = _rope_any(cfg, q, pos_b)
     k_new = _rope_any(cfg, k_new, pos_b)
     slot = cache.index % cache.k.shape[1] if cache.window else cache.index
-    cache.k[:, slot] = k_new[:, 0]
-    cache.v[:, slot] = v_new[:, 0]
-    cache.pos[:, slot] = position
+    DL.write_slot(cache.k, slot, k_new[:, 0])
+    DL.write_slot(cache.v, slot, v_new[:, 0])
+    DL.write_slot(cache.pos, slot, position)
     valid = cache.pos >= 0                            # (B, T)
     if cache.window:
         valid = valid & (cache.pos > position - cache.window)
     mask = valid[:, None, None, :]                    # (B,1,1,T)
     out = gqa_attention(q, cache.k, cache.v, mask)    # (B,1,H,D)
-    y = out.reshape(B, 1, -1) @ p["wo"]
+    y = DL.merge_heads(out, B, 1, -1) @ p["wo"]
     cache.index += 1
     return y, cache
 
@@ -266,8 +295,8 @@ def init_mla_cache(cfg: ArchConfig, batch, max_len, dtype, device="cpu"):
 
 def _mla_q(p, cfg, x, positions):
     m, B, S, h = cfg.mla, x.shape[0], x.shape[1], cfg.num_heads
-    q = ((x @ p["wq_a"]) @ p["wq_b"]).reshape(
-        B, S, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = DL.split_heads(DL.matmul(DL.matmul(x, p["wq_a"]), p["wq_b"]),
+                       B, S, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = torch.split(
         q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -278,17 +307,18 @@ def mla_forward(p, cfg: ArchConfig, x, positions):
     :func:`gqa_attention` (KV == H, q/k head dim nope + rope)."""
     m, B, S, h = cfg.mla, x.shape[0], x.shape[1], cfg.num_heads
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
-    c_kv = x @ p["wkv_a"]
-    k_rope = apply_rope((x @ p["wk_rope"])[:, :, None, :], positions,
+    c_kv = DL.matmul(x, p["wkv_a"])
+    k_rope = apply_rope(DL.matmul(x, p["wk_rope"])[:, :, None, :], positions,
                         cfg.rope_theta)                 # shared by the heads
-    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, h, m.qk_nope_head_dim)
-    v = (c_kv @ p["wv_b"]).reshape(B, S, h, m.v_head_dim)
+    k_nope = DL.split_heads(DL.matmul(c_kv, p["wk_b"]), B, S, h,
+                            m.qk_nope_head_dim)
+    v = DL.split_heads(DL.matmul(c_kv, p["wv_b"]), B, S, h, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, h, m.qk_rope_head_dim)],
                   dim=-1)
     mask = causal_mask(S, S, device=x.device)[None, None]
     out = gqa_attention(q, k, v, mask)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return DL.matmul(DL.merge_heads(out, B, S, -1), p["wo"])
 
 
 def mla_decode(p, cfg: ArchConfig, x, cache: MLACache, position: int):
@@ -300,12 +330,14 @@ def mla_decode(p, cfg: ArchConfig, x, cache: MLACache, position: int):
     pos_b = torch.full((B, 1), position, dtype=torch.int64, device=x.device)
     q_nope, q_rope = _mla_q(p, cfg, x, pos_b)           # (B,1,h,.)
     i = cache.index
-    cache.c_kv[:, i] = (x @ p["wkv_a"])[:, 0]
-    cache.k_rope[:, i] = apply_rope((x @ p["wk_rope"])[:, :, None, :],
-                                    pos_b, cfg.rope_theta)[:, 0, 0]
+    DL.write_slot(cache.c_kv, i, (x @ p["wkv_a"])[:, 0])
+    DL.write_slot(cache.k_rope, i, apply_rope(
+        (x @ p["wk_rope"])[:, :, None, :], pos_b, cfg.rope_theta)[:, 0, 0])
     # absorb W_uk into q: (B,1,h,nope) x (r, h*nope) -> (B,1,h,r)
-    wk_b = p["wk_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    wk_b = DL.split_heads(p["wk_b"], m.kv_lora_rank, h, m.qk_nope_head_dim)
     q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wk_b)
+    if DL.sequence_sharded(cache.c_kv):
+        return _mla_decode_sharded(p, cfg, x, cache, q_lat, q_rope, B, h)
     scores = (torch.einsum("bshr,btr->bhst", q_lat, cache.c_kv)
               + torch.einsum("bshn,btn->bhst", q_rope, cache.k_rope)
               ).to(torch.float32)
@@ -316,7 +348,29 @@ def mla_decode(p, cfg: ArchConfig, x, cache: MLACache, position: int):
     lat = torch.einsum("bhst,btr->bshr", w, cache.c_kv)  # (B,1,h,r)
     wv_b = p["wv_b"].reshape(m.kv_lora_rank, h, m.v_head_dim)
     out = torch.einsum("bshr,rhv->bshv", lat, wv_b)
-    y = out.reshape(B, 1, -1) @ p["wo"]
+    y = DL.merge_heads(out, B, 1, -1) @ p["wo"]
+    cache.index += 1
+    return y, cache
+
+
+def _mla_decode_sharded(p, cfg, x, cache, q_lat, q_rope, B, h):
+    """:func:`mla_decode`'s scores and weighted sum against a compressed
+    cache sharded on its sequence (``distributed.local.
+    sequence_attention``); the two score products are added in x's type
+    before the float32 cast, as in the unsharded form."""
+    m, i = cfg.mla, cache.index
+    T = cache.c_kv.shape[1]
+    valid = (torch.arange(T, device=x.device) <= i)[None, None, None, :]
+    lat = DL.sequence_attention(
+        (q_lat, q_rope), (cache.c_kv, cache.k_rope), (cache.c_kv,), valid,
+        lambda q_, c_, r_: (torch.einsum("bshr,btr->bhst", q_[0], c_)
+                            + torch.einsum("bshn,btn->bhst", q_[1], r_)
+                            ).to(torch.float32),
+        lambda w, c_: torch.einsum("bhst,btr->bshr", w, c_),
+        math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim))
+    wv_b = DL.split_heads(p["wv_b"], m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bshr,rhv->bshv", lat, wv_b)
+    y = DL.merge_heads(out, B, 1, -1) @ p["wo"]
     cache.index += 1
     return y, cache
 
@@ -331,8 +385,8 @@ def cross_attn_forward(p, cfg: ArchConfig, x, enc_out):
     B, S, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
     Te = enc_out.shape[1]
-    q = (x @ p["wq"]).reshape(B, S, h, hd)
-    k = (enc_out @ p["wk"]).reshape(B, Te, h, hd)
-    v = (enc_out @ p["wv"]).reshape(B, Te, h, hd)
+    q = DL.split_heads(DL.matmul(x, p["wq"]), B, S, h, hd)
+    k = DL.split_heads(DL.matmul(enc_out, p["wk"]), B, Te, h, hd)
+    v = DL.split_heads(DL.matmul(enc_out, p["wv"]), B, Te, h, hd)
     out = gqa_attention(q, k, v, mask=None)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return DL.matmul(DL.merge_heads(out, B, S, -1), p["wo"])

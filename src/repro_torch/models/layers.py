@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import local as DL
 from repro_torch.kernels import rmsnorm as krms
 
 
@@ -108,13 +109,13 @@ def apply_mlp(p, x, kind):
     """SwiGLU or GELU MLP; the activation is taken in float32 and cast
     back, as in the reference."""
     if kind == "swiglu":
-        g = x @ p["wi_gate"]
-        u = x @ p["wi_up"]
+        g = DL.matmul(x, p["wi_gate"])
+        u = DL.matmul(x, p["wi_up"])
         h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-        return h @ p["wo"]
-    h = x @ p["wi"] + p["bi"]
+        return DL.matmul(h, p["wo"])
+    h = DL.matmul(x, p["wi"]) + p["bi"]
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
-    return h @ p["wo"] + p["bo"]
+    return DL.matmul(h, p["wo"]) + p["bo"]
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,19 @@ encoder's bidirectional self-attention and cross-attention are
 Decoding always normalises through K5; its one-token attention is plain
 torch, as in the reference.
 Training (:func:`loss_fn`) always takes the reference's arithmetic, as the
-reference's train steps do: the kernels have no backward.  Parameters are
+reference's train steps do: the kernels have no backward.
+
+On a mesh the parameters are DTensors laid out by
+``distributed.rules.param_specs`` and the inputs DTensors laid out by
+``batch_specs``; the ``constrain*`` hooks (``distributed.rules``' factories)
+redistribute activations and parameters exactly where the reference pins
+them, and everything runs the reference's arithmetic: a mesh with
+``attention_impl="kernel"`` raises, and decoding normalises without K5.
+The ops DTensor does not propagate run shard by shard through
+:mod:`repro_torch.distributed.local`: the token lookup, full-sequence
+attention (heads or q's rows over 'model'), the SSM blocks and their
+decode steps (weights gathered, batch-sharded), MoE dispatch (experts on
+'model') and every cache write.  Parameters are
 built with ``requires_grad=False``; a trainer turns it on.
 """
 
@@ -61,6 +73,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed import local as DL
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (_dense_init, apply_mlp, apply_norm,
@@ -246,41 +259,65 @@ def init_params(cfg: ArchConfig, generator=None,
 # Prefill
 # ---------------------------------------------------------------------------
 
+def _no_hint(x, kind="attn"):
+    return x
+
+
+def _ssm_forward(kind, w, cfg, x, use_kernel):
+    """An SSM block's forward; on a mesh its chunk loops run shard by
+    shard (weights gathered, batch over the data axes)."""
+    fwd = SSM_FORWARD[kind]
+    if DL.is_dtensor(x):
+        return DL.replicated(
+            lambda w_, x_: fwd(w_, cfg, x_, use_kernel=False), w, x,
+            mesh=x.device_mesh)
+    return fwd(w, cfg, x, use_kernel=use_kernel)
+
+
 def _apply_block(p: Block, cfg: ArchConfig, h, *, positions, h0=None,
-                 shared=None, enc_out=None, attention_impl="kernel"):
+                 shared=None, enc_out=None, attention_impl="kernel",
+                 constrain_inner=None):
     """Full-sequence (train / prefill) block application.  Returns
     (h, aux); ``h0`` is the embedding output and ``shared`` the model's
     ``shared_attn``, both read by a shared-attention layer; ``enc_out``
-    is the encoder's output, read by a cross-attending layer."""
+    is the encoder's output, read by a cross-attending layer.
+    ``constrain_inner(x, kind)`` pins the block's inputs (kinds ``attn``
+    and ``mlp``) and outputs (``residual``), as the reference's does."""
     use_kernel = attention_impl == "kernel"
+    ci = constrain_inner or _no_hint
+
+    def res(y):
+        return ci(y, kind="residual")
+
     kind = p.spec.kind
     aux = {}
-    x = apply_norm(cfg.norm, p.norm1, h, use_kernel)
+    x = ci(apply_norm(cfg.norm, p.norm1, h, use_kernel), kind="attn")
     if kind in ("attn", "mla"):
         if kind == "mla":
-            h = h + attn.mla_forward(p.attn, cfg, x, positions)
+            h = h + res(attn.mla_forward(p.attn, cfg, x, positions))
         else:
-            h = h + attn.gqa_forward(p.attn, cfg, x, positions,
-                                     window=p.spec.window,
-                                     attention_impl=attention_impl)
+            h = h + res(attn.gqa_forward(p.attn, cfg, x, positions,
+                                         window=p.spec.window,
+                                         attention_impl=attention_impl))
             if p.spec.cross and enc_out is not None:
                 xc = apply_norm(cfg.norm, p.norm_cross, h, use_kernel)
-                h = h + attn.cross_attn_forward(p.cross, cfg, xc, enc_out)
-        x2 = apply_norm(cfg.norm, p.norm2, h, use_kernel)
+                h = h + res(attn.cross_attn_forward(p.cross, cfg, xc,
+                                                    enc_out))
+        x2 = ci(apply_norm(cfg.norm, p.norm2, h, use_kernel), kind="mlp")
         if p.spec.moe:
             y2, aux = moe_forward(p.moe, cfg, x2)
         else:
             y2 = apply_mlp(p.mlp, x2, cfg.mlp_kind)
-        h = h + y2
+        h = h + res(y2)
     elif kind in SSM_FORWARD:
-        h = h + SSM_FORWARD[kind](p.block, cfg, x, use_kernel=use_kernel)
+        h = h + res(_ssm_forward(kind, p.block, cfg, x, use_kernel))
     elif kind == "shared_attn":
-        z = torch.cat([x, h0], dim=-1) @ shared["w_concat"]
+        z = DL.matmul(torch.cat([x, h0], dim=-1), shared["w_concat"])
         z = z + attn.gqa_forward(shared["attn"], cfg, z, positions,
                                  attention_impl=attention_impl)
         z2 = apply_norm(cfg.norm, shared["norm2"], z, use_kernel)
         z = z + apply_mlp(shared["mlp"], z2, cfg.mlp_kind)
-        h = h + z @ p.down
+        h = h + res(DL.matmul(z, p.down))
     return h, aux
 
 
@@ -290,7 +327,7 @@ def _embed_inputs(params: CausalLM, cfg: ArchConfig, batch):
     clipped to the table, as the reference clips them."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = F.embedding(tokens, params.embed["table"])
+    h = DL.embedding(tokens, params.embed["table"])
     if cfg.vision_tokens and "vision_embeds" in batch:
         vision = batch["vision_embeds"]
         h = torch.cat([vision.to(h.dtype), h[:, vision.shape[1]:]], dim=1)
@@ -329,10 +366,19 @@ def grad_cast(tree):
     return {k: grad_cast(v) for k, v in tree.items()}
 
 
-def _cast_block(block: Block):
-    return types.SimpleNamespace(
-        spec=block.spec, **{part: grad_cast(getattr(block, part))
-                            for part in block.parts})
+def _cast_block(block: Block, constrain_layer=None):
+    """The block's parts as a namespace, each through :func:`grad_cast`
+    and then ``constrain_layer`` (over ``{part: subtree}``) when given."""
+    parts = {part: grad_cast(getattr(block, part)) for part in block.parts}
+    if constrain_layer is not None:
+        parts = constrain_layer(parts)
+    return types.SimpleNamespace(spec=block.spec, **parts)
+
+
+def _check_impl(x, attention_impl):
+    if DL.is_dtensor(x) and attention_impl == "kernel":
+        raise ValueError("a mesh runs the reference's arithmetic: pass "
+                         "attention_impl='reference'")
 
 
 def _encoder_layer(p: Block, cfg: ArchConfig, h):
@@ -341,11 +387,13 @@ def _encoder_layer(p: Block, cfg: ArchConfig, h):
     x = apply_norm(cfg.norm, p.norm1, h)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p.attn["wq"]).reshape(B, S, cfg.num_heads, hd)
-    k = (x @ p.attn["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (x @ p.attn["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    q = DL.split_heads(DL.matmul(x, p.attn["wq"]), B, S, cfg.num_heads, hd)
+    k = DL.split_heads(DL.matmul(x, p.attn["wk"]), B, S, cfg.num_kv_heads,
+                       hd)
+    v = DL.split_heads(DL.matmul(x, p.attn["wv"]), B, S, cfg.num_kv_heads,
+                       hd)
     y = attn.gqa_attention(q, k, v, mask=None)
-    h = h + y.reshape(B, S, -1) @ p.attn["wo"]
+    h = h + DL.matmul(DL.merge_heads(y, B, S, -1), p.attn["wo"])
     x2 = apply_norm(cfg.norm, p.norm2, h)
     return h + apply_mlp(p.mlp, x2, cfg.mlp_kind)
 
@@ -363,8 +411,18 @@ def encode(encoder: WhisperEncoder, cfg: ArchConfig, frames, remat=False):
     return apply_norm(cfg.norm, encoder.final_norm, h)
 
 
+def _segment_ends(cfg: ArchConfig):
+    """Indices of the last block of each segment of the layer plan."""
+    ends, i = set(), -1
+    for _, n in segments(cfg):
+        i += n
+        ends.add(i)
+    return ends
+
+
 def forward_hidden(params: CausalLM, cfg: ArchConfig, batch, *,
-                   remat=False, attention_impl="kernel"):
+                   remat=False, attention_impl="kernel", constrain=None,
+                   constrain_layer=None, constrain_inner=None):
     """Train / prefill trunk.  Returns (final-norm hidden states, aux):
     ``aux["load_balance_loss"]`` sums the MoE layers' (0 without MoE).
     An encoder-decoder encodes ``batch["frames"]`` when the batch has
@@ -373,8 +431,16 @@ def forward_hidden(params: CausalLM, cfg: ArchConfig, batch, *,
     When a backward pass can follow (gradients enabled, a parameter that
     requires them) each layer's parameters pass through :func:`grad_cast`;
     ``remat=True`` recomputes each layer in the backward pass
-    (``torch.utils.checkpoint``), so only layer inputs are kept."""
+    (``torch.utils.checkpoint``), so only layer inputs are kept.
+
+    The mesh hooks, as in the reference: ``constrain(h)`` pins the
+    residual stream after the embedding and after each segment,
+    ``constrain_layer`` each layer's parameters, ``constrain_inner``
+    each block's inputs and outputs."""
+    constrain = constrain or (lambda x: x)
     h, positions = _embed_inputs(params, cfg, batch)
+    _check_impl(h, attention_impl)
+    h = constrain(h)
     h0 = h
     enc_out = None
     if cfg.encoder_layers and "frames" in batch:
@@ -383,10 +449,13 @@ def forward_hidden(params: CausalLM, cfg: ArchConfig, batch, *,
     training = torch.is_grad_enabled() and any(
         p.requires_grad for p in params.parameters())
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
-    for block in params.blocks:
-        p = _cast_block(block) if training else block
+    ends = _segment_ends(cfg)
+    for i, block in enumerate(params.blocks):
+        p = (_cast_block(block, constrain_layer)
+             if training or constrain_layer is not None else block)
         kw = dict(positions=positions, h0=h0, shared=shared,
-                  enc_out=enc_out, attention_impl=attention_impl)
+                  enc_out=enc_out, attention_impl=attention_impl,
+                  constrain_inner=constrain_inner)
         if remat:
             h, aux = checkpoint(_apply_block, p, cfg, h, use_reentrant=False,
                                 **kw)
@@ -394,6 +463,8 @@ def forward_hidden(params: CausalLM, cfg: ArchConfig, batch, *,
             h, aux = _apply_block(p, cfg, h, **kw)
         if "load_balance_loss" in aux:
             lb = lb + aux["load_balance_loss"]
+        if i in ends:
+            h = constrain(h)
     h = apply_norm(cfg.norm, params.final_norm, h,
                    attention_impl == "kernel")
     return h, {"load_balance_loss": lb}
@@ -401,18 +472,21 @@ def forward_hidden(params: CausalLM, cfg: ArchConfig, batch, *,
 
 def project_logits(params: CausalLM, cfg: ArchConfig, h):
     if cfg.tie_embeddings:
-        logits = h @ params.embed["table"].t()
+        logits = DL.matmul(h, params.embed["table"].t())
     else:
-        logits = h @ params.lm_head
+        logits = DL.matmul(h, params.lm_head)
     return logits.to(torch.float32)
 
 
 def forward(params: CausalLM, cfg: ArchConfig, batch, *,
-            attention_impl="kernel"):
-    """Prefill forward returning full logits.  Returns (logits, aux)."""
+            attention_impl="kernel", constrain=None):
+    """Prefill forward returning full logits.  Returns (logits, aux);
+    ``constrain`` pins the residual stream and the logits."""
+    constrain = constrain or (lambda x: x)
     h, aux = forward_hidden(params, cfg, batch,
-                            attention_impl=attention_impl)
-    return project_logits(params, cfg, h), aux
+                            attention_impl=attention_impl,
+                            constrain=constrain)
+    return constrain(project_logits(params, cfg, h)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -423,20 +497,32 @@ def forward(params: CausalLM, cfg: ArchConfig, batch, *,
 CE_CHUNK_BYTES = 128 * 2 ** 20
 
 
-def _ce_chunk_size(B, S, vocab):
+def _ce_chunk_size(B, S, vocab, devices=1):
     """The largest divisor of S whose (B, chunk, vocab) float32 logits fit
-    in ``CE_CHUNK_BYTES`` (at least 1)."""
-    target = max(1, min(S, CE_CHUNK_BYTES // max(B * vocab * 4, 1)))
+    in ``CE_CHUNK_BYTES`` on each of ``devices`` devices (at least 1)."""
+    target = max(1, min(S, CE_CHUNK_BYTES * devices
+                        // max(B * vocab * 4, 1)))
     return next(c for c in range(target, 0, -1) if S % c == 0)
 
 
-def _chunk_loss(h_c, lab_c, w, tied):
-    logits = (h_c @ w.t() if tied else h_c @ w).to(torch.float32)
-    logp = torch.log_softmax(logits, dim=-1)
+def _chunk_loss(h_c, lab_c, w, tied, constrain=None):
+    logits = DL.matmul(h_c, w.t() if tied else w).to(torch.float32)
+    if constrain is not None:
+        logits = constrain(logits)
+    if DL.is_dtensor(logits):
+        # vocab-parallel log-softmax: a max and a sum over the vocabulary
+        # reduce across its shards instead of gathering the logits
+        m = torch.amax(logits, dim=-1, keepdim=True).detach()
+        logp = logits - (m + torch.log(torch.sum(torch.exp(logits - m),
+                                                 dim=-1, keepdim=True)))
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
     # the label pick as a mask-sum over the vocabulary, as the reference
     # picks it (it keeps a vocabulary-sharded pick local to each shard)
     onehot = (torch.arange(logits.shape[-1], device=logits.device)
               == torch.clamp_min(lab_c, 0)[..., None])
+    if DL.is_dtensor(logp):         # sliced to the vocabulary shards
+        onehot = onehot.redistribute(logp.device_mesh, logp.placements)
     ll = torch.sum(torch.where(onehot, logp, torch.zeros_like(logp)), dim=-1)
     mask = (lab_c >= 0).to(torch.float32)
     return torch.sum(ll * mask), torch.sum(mask)
@@ -449,32 +535,33 @@ def chunked_ce(params: CausalLM, cfg: ArchConfig, h, labels, *, chunk=0,
     recomputed in the backward pass (``torch.utils.checkpoint``), so the
     live logits are (B, chunk, V).  ``chunk=0`` picks the largest divisor
     of S within ``CE_CHUNK_BYTES``; a chunk that does not divide S means
-    one chunk.  Labels below 0 are masked out.  ``constrain*`` are the
-    reference's mesh layout hints: only None is accepted."""
-    _no_layout_hints(constrain=constrain, constrain_head=constrain_head)
+    one chunk.  Labels below 0 are masked out.  On a mesh the budget is
+    per device, as the reference's; ``constrain`` pins each chunk's
+    logits and ``constrain_head`` the head weight, once, before the
+    chunks."""
     B, S, _ = h.shape
+    if DL.is_dtensor(h):
+        # the sequence gathered over 'model' once, so the head's product
+        # stays vocabulary-parallel (the reference's logits pin)
+        h = h.redistribute(h.device_mesh, DL.batch_placements(
+            h.device_mesh, h.shape, 0))
     if chunk <= 0:
-        chunk = _ce_chunk_size(B, S, cfg.vocab_size)
+        devices = h.device_mesh.size() if DL.is_dtensor(h) else 1
+        chunk = _ce_chunk_size(B, S, cfg.vocab_size, devices)
     if S % chunk:
         chunk = S
     tied = cfg.tie_embeddings
     w = params.embed["table"] if tied else params.lm_head
+    if constrain_head is not None:
+        w = constrain_head(w)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, chunk):
         s, n = checkpoint(_chunk_loss, h[:, i:i + chunk],
-                          labels[:, i:i + chunk], w, tied,
+                          labels[:, i:i + chunk], w, tied, constrain,
                           use_reentrant=False)
         tot, cnt = tot + s, cnt + n
     return -tot / torch.clamp_min(cnt, 1.0)
-
-
-def _no_layout_hints(**hints):
-    given = sorted(k for k, v in hints.items() if v is not None)
-    if given:
-        raise NotImplementedError(
-            f"mesh layout hints {given} need distributed/rules.py, not "
-            f"ported yet (ROADMAP A12/A14)")
 
 
 def loss_fn(params: CausalLM, cfg: ArchConfig, batch, *, remat=False,
@@ -484,11 +571,11 @@ def loss_fn(params: CausalLM, cfg: ArchConfig, batch, *, remat=False,
     """Next-token cross-entropy (+ MoE load-balance aux, zero for the
     dense families): ``(total, {"ce_loss", "load_balance_loss"})``.
     Always the reference's arithmetic (no kernel); ``constrain*`` are the
-    reference's mesh layout hints: only None is accepted."""
-    _no_layout_hints(constrain=constrain, constrain_layer=constrain_layer,
-                     constrain_inner=constrain_inner)
+    mesh hooks of :func:`forward_hidden` and :func:`chunked_ce`."""
     h, aux = forward_hidden(params, cfg, batch, remat=remat,
-                            attention_impl="reference")
+                            attention_impl="reference", constrain=constrain,
+                            constrain_layer=constrain_layer,
+                            constrain_inner=constrain_inner)
     loss = chunked_ce(params, cfg, h, batch["labels"], chunk=ce_chunk,
                       constrain=constrain_logits,
                       constrain_head=constrain_head)
@@ -524,8 +611,11 @@ def init_decode_state(cfg: ArchConfig, batch, max_len, dtype=None,
     ``window`` slots on a sliding-window layer; a shared-attention layer
     has its own, although its weights are shared), the compressed latent
     and rope key for an MLA layer, a constant-size state
-    for an SSM layer; and the next absolute position."""
-    dev = resolve_device(device)
+    for an SSM layer; and the next absolute position.  ``device="meta"``
+    builds the shapes only."""
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
     caches = [_init_block_cache(cfg, spec, batch, max_len, dtype, dev)
               for spec in layer_plan(cfg)]
@@ -534,43 +624,55 @@ def init_decode_state(cfg: ArchConfig, batch, max_len, dtype=None,
 
 def _decode_block(p: Block, cfg: ArchConfig, h, cache, *, position, h0,
                   shared, enc_out=None):
-    """One-token decode through a block.  Returns (h, new cache)."""
+    """One-token decode through a block.  Returns (h, new cache).  On a
+    mesh (DTensor ``h``) norms take their plain version, not K5."""
     kind = p.spec.kind
-    x = apply_norm(cfg.norm, p.norm1, h)
+    k5 = not DL.is_dtensor(h)
+    x = apply_norm(cfg.norm, p.norm1, h, k5)
     if kind in ("attn", "mla"):
         decode = attn.mla_decode if kind == "mla" else attn.gqa_decode
         y, cache = decode(p.attn, cfg, x, cache, position)
         h = h + y
         if p.spec.cross and enc_out is not None:
-            xc = apply_norm(cfg.norm, p.norm_cross, h)
+            xc = apply_norm(cfg.norm, p.norm_cross, h, k5)
             h = h + attn.cross_attn_forward(p.cross, cfg, xc, enc_out)
-        x2 = apply_norm(cfg.norm, p.norm2, h)
+        x2 = apply_norm(cfg.norm, p.norm2, h, k5)
         if p.spec.moe:
             y2, _ = moe_forward(p.moe, cfg, x2, dropless=True)
         else:
             y2 = apply_mlp(p.mlp, x2, cfg.mlp_kind)
         h = h + y2
     elif kind in SSM_STEP:
-        y, cache = SSM_STEP[kind](p.block, cfg, x, cache)
+        if DL.is_dtensor(x):
+            y, cache = DL.replicated_step(
+                lambda w_, x_, st_: SSM_STEP[kind](w_, cfg, x_, st_,
+                                                   use_kernel=False),
+                p.block, x, cache)
+        else:
+            y, cache = SSM_STEP[kind](p.block, cfg, x, cache)
         h = h + y
     elif kind == "shared_attn":
         z = torch.cat([x, h0], dim=-1) @ shared["w_concat"]
         y, cache = attn.gqa_decode(shared["attn"], cfg, z, cache, position)
         z = z + y
-        z2 = apply_norm(cfg.norm, shared["norm2"], z)
+        z2 = apply_norm(cfg.norm, shared["norm2"], z, k5)
         z = z + apply_mlp(shared["mlp"], z2, cfg.mlp_kind)
         h = h + z @ p.down
     return h, cache
 
 
 def decode_step(params: CausalLM, cfg: ArchConfig, tokens, state, *,
-                enc_out=None):
+                enc_out=None, constrain=None):
     """tokens: (B, 1) -> (logits (B, 1, V) float32, new state).  KV caches
     are updated in place; SSM layers get new states in the new state's
     list.  ``enc_out`` is the encoder's output that the cross-attending
     layers read.  A learned position past the table reads its last row,
-    as the reference's clamped slice does."""
-    h = F.embedding(tokens, params.embed["table"])
+    as the reference's clamped slice does.  ``constrain`` pins h after
+    the embedding, after every layer and after every segment (the
+    reference's decode hook, ``decode_act_constraint``)."""
+    constrain = constrain or (lambda x: x)
+    h = DL.embedding(tokens, params.embed["table"])
+    h = constrain(h)
     position = state["position"]
     if cfg.rope_theta == 0.0:
         table = params.pos_embed["pos"]
@@ -579,10 +681,14 @@ def decode_step(params: CausalLM, cfg: ArchConfig, tokens, state, *,
     h0 = h
     shared = getattr(params, "shared_attn", None)
     caches = []
-    for block, cache in zip(params.blocks, state["caches"]):
+    ends = _segment_ends(cfg)
+    for i, (block, cache) in enumerate(zip(params.blocks, state["caches"])):
         h, cache = _decode_block(block, cfg, h, cache, position=position,
                                  h0=h0, shared=shared, enc_out=enc_out)
+        h = constrain(h)
+        if i in ends:
+            h = constrain(h)
         caches.append(cache)
-    h = apply_norm(cfg.norm, params.final_norm, h)
+    h = apply_norm(cfg.norm, params.final_norm, h, not DL.is_dtensor(h))
     return project_logits(params, cfg, h), {"caches": caches,
                                             "position": position + 1}

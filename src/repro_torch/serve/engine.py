@@ -12,6 +12,11 @@ encoder output ``enc_out`` that every decode step cross-attends to.
 position and active flags, and one call of the step function over the
 whole slot batch per step.  `repro_torch.service.batcher` runs the
 advisor's probe batching on it.
+
+On a mesh (the reference's sharded prefill and decode) the parameters
+come from :func:`shard_params` (``rules.param_specs``), the serve state
+from :func:`shard_serve_state` (``rules.decode_state_specs``, ``enc_out``
+included), and the steps take the reference's hooks.
 """
 
 from __future__ import annotations
@@ -21,9 +26,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import interop
+from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed import local as DL
+from repro_torch.distributed import rules as RU
+from repro_torch.distributed.mesh import check_model_mesh
 from repro_torch.models import model as M
+from repro_torch.train.steps import _plain, mesh_context, replicas_of
 
 
 def tree_map(fn, tree, *rest):
@@ -182,26 +193,106 @@ class SlotDriver:
         raise RuntimeError(f"slots still active after {max_steps} steps")
 
 
-def make_prefill_step(cfg: ArchConfig, attention_impl="kernel"):
+def _mesh_of(params):
+    w = params.embed["table"]
+    return w.device_mesh if DL.is_dtensor(w) else None
+
+
+def shard_params(params, mesh):
+    """A ``CausalLM`` whose parameters are DTensor views of the
+    reference's pytree laid out by ``rules.param_specs`` on ``mesh``
+    (every rank passing the same global weights)."""
+    check_model_mesh(mesh)
+    tree = interop.lm_tree(params)
+    placed = RU.place_tree(tree, RU.param_specs(tree, mesh), mesh)
+    return interop.lm_params(params.cfg, placed,
+                             T.flatten(tree)[0][0].device)
+
+
+def place_batch(batch, mesh, *, shardable_batch=True):
+    """A batch (global tensors, the same on every rank) laid out by
+    ``rules.batch_specs``; DTensors pass through."""
+    return RU.place_tree(batch, RU.batch_specs(
+        batch, mesh, shardable_batch=shardable_batch), mesh)
+
+
+def make_prefill_step(cfg: ArchConfig, attention_impl="kernel",
+                      constrain=None):
     """prefill(params, batch) -> next-token logits (B, V) float32.  Only
     the last position is projected onto the vocabulary: the same numbers
     as the reference's ``forward(...)[:, -1, :]`` without the (B, S, V)
-    logits."""
+    logits.  With parameters from :func:`shard_params` the batch is laid
+    out by ``batch_specs``, ``constrain`` (``rules.act_constraint``) pins
+    the residual stream as in the reference, the step must run
+    ``attention_impl="reference"``, and the logits come back whole."""
     def prefill(params, batch):
-        h, _ = M.forward_hidden(params, cfg, batch,
-                                attention_impl=attention_impl)
-        return M.project_logits(params, cfg, h[:, -1:])[:, 0]
+        mesh = _mesh_of(params)
+        if mesh is not None:
+            batch = place_batch(batch, mesh)
+        with mesh_context(mesh):
+            h, _ = M.forward_hidden(params, cfg, batch,
+                                    attention_impl=attention_impl,
+                                    constrain=constrain)
+            logits = M.project_logits(params, cfg, h[:, -1:])[:, 0]
+            return _plain(logits)
     return prefill
 
 
-def make_serve_step(cfg: ArchConfig):
+def decode_state_placements(state, mesh, *, shardable_batch=True):
+    """A decode state (``init_decode_state``'s, per-layer caches) laid out
+    by ``rules.decode_state_specs``: each cache tensor gets the spec of
+    its stacked counterpart without the layer axis."""
+    def place(cache):
+        import dataclasses
+        new = {}
+        for f in dataclasses.fields(cache):
+            x = getattr(cache, f.name)
+            if isinstance(x, torch.Tensor):
+                stacked = {f.name: torch.empty((1,) + tuple(x.shape),
+                                               device="meta")}
+                spec = RU.decode_state_specs(
+                    stacked, mesh, shardable_batch=shardable_batch)[f.name]
+                new[f.name] = RU.place(x, RU.P(*spec[1:]), mesh)
+        return dataclasses.replace(cache, **new)
+    return dict(state, caches=[place(c) for c in state["caches"]])
+
+
+def shard_serve_state(state, mesh, *, shardable_batch=True):
+    """A serve state laid out on ``mesh``: the decode caches by
+    :func:`decode_state_placements`, ``enc_out`` with its batch over the
+    data axes (when shardable), as the reference's dry run places it."""
+    out = {"decode": decode_state_placements(
+        state["decode"], mesh, shardable_batch=shardable_batch)}
+    if "enc_out" in state:
+        spec = RU.serve_state_specs(
+            {"decode": {}, "enc_out": state["enc_out"]}, mesh,
+            shardable_batch=shardable_batch)["enc_out"]
+        out["enc_out"] = RU.place(state["enc_out"], RU.fit_spec(
+            spec, state["enc_out"].shape, mesh), mesh)
+    return out
+
+
+def make_serve_step(cfg: ArchConfig, constrain=None):
     """serve_step: ONE new token against the KV caches of ``state`` (and
-    its ``enc_out``, which passes through unchanged)."""
+    its ``enc_out``, which passes through unchanged).  With parameters
+    from :func:`shard_params` the state must come from
+    :func:`shard_serve_state`; ``constrain`` (``rules.
+    decode_act_constraint``) pins h between layers, as in the reference;
+    the tokens are laid out by ``batch_specs`` and the next tokens come
+    back whole."""
     def serve(params, state, tokens):
+        mesh = _mesh_of(params)
         enc_out = state.get("enc_out")
-        logits, new_state = M.decode_step(params, cfg, tokens,
-                                          state["decode"], enc_out=enc_out)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1)
+        if mesh is not None:
+            shardable = tokens.shape[0] % replicas_of(mesh) == 0
+            tokens = place_batch({"tokens": tokens}, mesh,
+                                 shardable_batch=shardable)["tokens"]
+        with mesh_context(mesh):
+            logits, new_state = M.decode_step(
+                params, cfg, tokens, state["decode"], enc_out=enc_out,
+                constrain=constrain)
+            # the (B, V) logits gathered before the argmax (small)
+            next_tok = torch.argmax(_plain(logits[:, -1, :]), dim=-1)
         out = {"decode": new_state}
         if enc_out is not None:
             out["enc_out"] = enc_out
@@ -212,8 +303,11 @@ def make_serve_step(cfg: ArchConfig):
 def init_serve_state(cfg: ArchConfig, batch, max_len, dtype=None,
                      device=DEFAULT_DEVICE, with_encoder=False):
     """{"decode": the decode state} and, for an encoder-decoder or when
-    ``with_encoder``, a zero ``enc_out`` (batch, encoder_seq, d_model)."""
-    dev = resolve_device(device)
+    ``with_encoder``, a zero ``enc_out`` (batch, encoder_seq, d_model).
+    ``device="meta"`` builds the shapes only."""
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(device)
     state = {"decode": M.init_decode_state(cfg, batch, max_len, dtype, dev)}
     if with_encoder or cfg.encoder_layers:
         state["enc_out"] = torch.zeros(

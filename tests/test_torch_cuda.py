@@ -985,3 +985,104 @@ def test_multimodal_prefill_on_the_card_matches_the_cpu(arch, cuda_device):
         == REDUCED_MULTIMODAL_LAUNCHES[arch]
     want, _ = M.forward(lm, cfg, batch)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+_MESH_ON_CARD = r"""
+import json, os, socket, sys, warnings
+warnings.filterwarnings("ignore")
+sys.path.insert(0, "src")
+import torch
+import torch.distributed as dist
+from repro_torch import kernels
+from repro_torch import tree as T
+from repro_torch.configs.registry import get_arch
+from repro_torch.distributed.mesh import make_debug_mesh
+from repro_torch.models import model as M
+from repro_torch.train import steps as S
+dev = torch.device("cuda", 0)
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=0, world_size=1, device_id=dev)
+mesh = make_debug_mesh(data=1, model=1)
+cfg = get_arch("gemma3-1b").reduced()
+lm = M.init_params(cfg, torch.Generator(device=dev).manual_seed(5), dev)
+g = torch.Generator(device=dev).manual_seed(6)
+batch = {k: torch.randint(0, cfg.vocab_size, (4, 32), generator=g,
+                          device=dev) for k in ("tokens", "labels")}
+out = {}
+losses = {}
+for name, m in (("none", None), ("mesh", mesh)):
+    st = S.init_train_state(cfg, "sync", params=lm, mesh=m)
+    step = S.make_train_step(cfg, m)
+    kernels.reset_launch_counts()
+    ls = []
+    for _ in range(2):
+        st, metrics = step(st, batch)
+        ls.append(float(metrics["loss"]))
+    losses[name] = ls
+    out[f"sync_launches_{name}"] = sum(kernels.launch_counts().values())
+    out[f"params_{name}"] = [float(x.full_tensor().abs().sum())
+                             if hasattr(x, "full_tensor")
+                             else float(x.abs().sum())
+                             for x in T.flatten(st["params"])[0]]
+out["losses"] = losses
+st = S.init_gossip_state(cfg, params=lm, mesh=mesh)
+step = S.make_gossip_step(cfg, mesh, lr=2e-3)
+kernels.reset_launch_counts()
+st, metrics = step(st, batch)
+torch.cuda.synchronize()
+out["gossip_launches"] = kernels.launch_counts()
+out["gossip_leaves"] = len(T.flatten(st["y"])[0])
+out["gossip_loss"] = float(metrics["loss"])
+dist.destroy_process_group()
+print("RESULT " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_on_card():
+    """One child process with a 1-rank NCCL group on cuda:0 (the group
+    never exists in the test process): two sharded sync steps of reduced
+    gemma3-1b (float32) and their mesh=None twins, and one mesh gossip
+    step at R = 1."""
+    import json
+    import os
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU; the NCCL group runs on the card")
+    root = os.path.join(os.path.dirname(__file__), "..")
+    proc = subprocess.run([sys.executable, "-c", _MESH_ON_CARD], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")]
+    return json.loads(line[-1][len("RESULT "):])
+
+
+@pytest.mark.cuda
+def test_nccl_sync_step_matches_unsharded(mesh_on_card):
+    """The sharded sync step on a 1-rank NCCL mesh against mesh=None: the
+    two losses within 1e-5 relative, every leaf's sum within 1e-5
+    relative, and no kernel launched (training takes the reference's
+    arithmetic)."""
+    r = mesh_on_card
+    for a, b in zip(r["losses"]["none"], r["losses"]["mesh"]):
+        assert abs(a - b) <= 1e-5 * abs(a)
+    for a, b in zip(r["params_none"], r["params_mesh"]):
+        assert abs(a - b) <= 1e-5 * abs(a) + 1e-6
+    assert r["sync_launches_none"] == r["sync_launches_mesh"] == 0
+
+
+@pytest.mark.cuda
+def test_mesh_gossip_step_launches_k3_k4_per_leaf(mesh_on_card):
+    """The mesh gossip step at R = 1 runs K3 and K4 on its own leaves: one
+    launch each per leaf and compression, two compressions a step, and
+    nothing else."""
+    r = mesh_on_card
+    n = 2 * r["gossip_leaves"]
+    want = {k: 0 for k in r["gossip_launches"]}
+    want.update(quantize_rows=n, dequantize_rows=n)
+    assert r["gossip_launches"] == want
+    assert math.isfinite(r["gossip_loss"])

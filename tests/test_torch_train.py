@@ -330,16 +330,24 @@ def test_analytic_matches_reference(arch):
 
 
 def test_no_mesh_and_strategy_checks():
+    """A mesh must be a named torch DeviceMesh (tests/test_torch_shard.py
+    runs real ones); anything else is a TypeError.  Identity layout hooks
+    leave the loss as it is, bit for bit."""
     cfg = get_arch("gemma3-1b").reduced()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         S.make_train_step(cfg, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         S.make_gossip_step(cfg, mesh=object(), replicas=2)
     with pytest.raises(ValueError):
         S.make_train_step(cfg, strategy="gossip")
-    with pytest.raises(NotImplementedError):
-        M.loss_fn(M.init_params(cfg, device="cpu"), cfg,
-                  _tbatch(_setup("gemma3-1b")[3]), constrain=lambda x: x)
+    lm = M.init_params(cfg, device="cpu")
+    batch = _tbatch(_setup("gemma3-1b")[3])
+    ident = lambda x, kind="attn": x      # noqa: E731
+    hooked, _ = M.loss_fn(lm, cfg, batch, constrain=ident,
+                          constrain_inner=ident, constrain_logits=ident,
+                          constrain_head=ident,
+                          constrain_layer=lambda t: t)
+    assert torch.equal(hooked, M.loss_fn(lm, cfg, batch)[0])
 
 
 def _cli(*args):
