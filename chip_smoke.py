@@ -55,6 +55,18 @@
    the launches of K1, K2, the fused tail and K3/K4 must equal the counts
    predicted from the spec (`expected_launches`).  One line per spec:
    wall time, per-job timings, status, measured and predicted m_max.
+4b'. Phase examples: the port's five examples (``examples/torch_*.py``)
+   run in this process (``runpy``, ``sys.argv`` set), each with the
+   counters set to 0 just before and read just after, its output and
+   wall time printed: quickstart, serve_batch, train_100m ``--steps
+   300``, gossip_ecd_psgd and paper_scalability_study ``--full --force``.
+   Every kernel's launches must equal ``example_launches`` (K1/K2/K5/K6
+   5/3/5/1 for quickstart, K5 225 for serve_batch, none for train_100m,
+   K3/K4 2 x 20 x 8 for the gossip, ``expected_launches`` for the
+   study); quickstart's lines must equal its CPU run's but for the loss
+   at init, train_100m's loss must fall over 5 advisor probes, the gossip
+   example asserts its own descent, and the study's every m_max must
+   equal phase specs'.
 4c. Phase specs-vs-cpu: the same eight specs at their quick sizes and 60
    iterations on the GPU and on the CPU: characters and C_sim to 1e-6
    relative (n, d, diversity and diversity_ratio exact), every seed's
@@ -160,12 +172,16 @@
    flops (``launch.analytic``) as a share of the bf16 peak and the peak
    memory; the loss must fall (the mean of the last three steps below the
    first).  One more sync step runs under ``torch.profiler``.
-7b. Phase train-families: ``train_loop`` at full-width, full-depth
-   zamba2-1.2b and xlstm-350m in bfloat16 (AdamW, lr 3e-4, every layer
-   recomputed in the backward), 5 sync steps each of 4 x 1024
-   ``hmm_stream`` tokens, the counters set to 0 just before and read
-   just after: no kernel may launch and the loss must fall.  Per family
-   the same numbers as phase train and one profiled step.
+7b. Phase train-families: ``train_loop`` at full width in bfloat16
+   (AdamW, lr 3e-4, every layer recomputed in the backward), 5 sync steps
+   each of 4 ``hmm_stream`` sequences: zamba2-1.2b and xlstm-350m uncut
+   at 1024 tokens, whisper-small uncut at 448 decoder tokens with
+   ``train_loop``'s zero frames (4, 1500, 768), qwen2-vl-72b at 2 of its
+   80 layers at 2048 positions, the first 1024 ``train_loop``'s zero
+   vision embeddings; the counters set to 0 just before and read just
+   after: no kernel may launch, the loss must fall and the peak memory
+   stay below 80 GB.  Per family the same numbers as phase train and one
+   profiled step.
 8. Phase gossip: ``train.steps.make_gossip_step`` at full-width gemma3-1b
    with 2 replicas stacked on the card, 4 steps on one fixed hmm_stream
    batch of 8 x 1024 tokens (4 x 1024 a replica) at lr 2e-3, the
@@ -180,8 +196,10 @@
 9. Phase train-vs-cpu: reduced gemma3-1b in float32 from the same weights
    on the card and the CPU: 5 sync and 5 stale steps (losses within 1e-4
    relative), 3 gossip steps at R = 4 (within 1e-3); and one sync step's
-   loss and every gradient leaf of reduced zamba2-1.2b and xlstm-350m
-   (within 1e-4 relative, a leaf to its largest magnitude).
+   loss and every gradient leaf of reduced zamba2-1.2b, xlstm-350m,
+   whisper-small (with frames) and qwen2-vl-72b (with vision embeddings
+   and grid positions) (within 1e-4 relative, a leaf to its largest
+   magnitude).
 9b. Phase shard, in a child process (its process group dies with it): a
    1-rank NCCL group and ``make_debug_mesh(data=1, model=1)``; full-width
    gemma3-1b in bfloat16 from phase train's seeds: 3 sharded sync steps
@@ -203,7 +221,8 @@
 10. Prints one JSON line with each kernel's numbers (the sweep kernels'
    launches also per spec, per report spec and in all for the report,
    and per service path, K3/K4's per path (the mesh gossip's too), their
-   record at the gossip's largest leaf, K5/K6's per family), then the
+   record at the gossip's largest leaf, K5/K6's per family, every
+   kernel's per example), then the
    final line
    ``{"ok": true, "device": {...}}``.
 
@@ -1094,23 +1113,6 @@ def check_serve(dev, params, batch, logits):
             "b_windows": [s.window for s in M.layer_plan(cfg6)]}
 
 
-def _grid_positions(batch, seq, vision, device):
-    """(3, batch, seq) M-RoPE ids of a prompt that opens with ``vision``
-    patches of a square grid, as Qwen2-VL lays them out (arXiv:2409.12191
-    section 2.1): t = 0, h = row, w = col; the text continues from the
-    grid's side on all three streams."""
-    import torch
-    side = math.isqrt(vision)
-    if side * side != vision:
-        raise ValueError(f"{vision} patches are not a square grid")
-    idx = torch.arange(vision, device=device)
-    text = side + torch.arange(seq - vision, device=device)
-    pos = torch.stack([torch.cat([torch.zeros_like(idx), text]),
-                       torch.cat([idx // side, text]),
-                       torch.cat([idx % side, text])])
-    return pos[:, None].expand(3, batch, seq).contiguous()
-
-
 def _family_batch(cfg, gen, dev):
     """Phase families' prefill batch, drawn from ``gen``: 4 prompts of 2048
     tokens; for whisper 448 decoder tokens and 0.1 * normal frame
@@ -1118,6 +1120,7 @@ def _family_batch(cfg, gen, dev):
     embeddings for the first 1024 positions (a 32 x 32 grid), with grid
     positions.  The embeddings are in the model's type."""
     import torch
+    from _torch_mrope import grid_positions
     dtype = getattr(torch, cfg.dtype)
     seq = WHISPER_DECODER_TOKENS if cfg.encoder_layers else 2048
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, seq),
@@ -1130,7 +1133,7 @@ def _family_batch(cfg, gen, dev):
         batch["vision_embeds"] = (0.02 * torch.randn(
             4, cfg.vision_tokens, cfg.d_model, generator=gen,
             device=dev)).to(dtype)
-        batch["positions"] = _grid_positions(4, seq, cfg.vision_tokens, dev)
+        batch["positions"] = grid_positions(4, seq, cfg.vision_tokens, dev)
     return batch
 
 
@@ -1335,10 +1338,11 @@ def check_families(dev):
             batch["frames"] = 0.1 * torch.randn(
                 2, cfg.encoder_seq, cfg.d_model, generator=g)
         if cfg.vision_tokens:
+            from _torch_mrope import grid_positions
             batch["vision_embeds"] = 0.02 * torch.randn(
                 2, cfg.vision_tokens, cfg.d_model, generator=g)
-            batch["positions"] = _grid_positions(2, 40, cfg.vision_tokens,
-                                                 "cpu")
+            batch["positions"] = grid_positions(2, 40, cfg.vision_tokens,
+                                                "cpu")
         logits, diffs = {}, []
         for name, model, b in (("cpu", lm, batch),
                                ("cuda", on_card,
@@ -1440,11 +1444,12 @@ def run_specs():
     run, on the card at its published size, no cache, with the launch counters set to 0 just before and read
     just after; every job must finish ``ok`` and every count must equal
     :func:`expected_launches`.  Prints one line per spec and returns the
-    per-spec launch counts."""
+    per-spec launch counts and per-spec ``{job: [status, measured_m_max,
+    predicted_m_max]}``."""
     import torch
     from repro_torch import kernels
     from repro_torch.experiments import registry, runner
-    launches_by_spec = {}
+    launches_by_spec, jobs_by_spec = {}, {}
     for name in (s for s in NEW_SPECS if s not in REPORT_SPECS):
         spec = registry.get_spec(name)
         torch.cuda.synchronize()
@@ -1476,7 +1481,159 @@ def run_specs():
         if got != want:
             raise AssertionError(f"{name}: launches {got}, expected {want}")
         launches_by_spec[name] = got
-    return launches_by_spec
+        jobs_by_spec[name] = jobs
+    return launches_by_spec, jobs_by_spec
+
+
+# phase examples: each examples/torch_*.py with its arguments, run in this
+# process (``runpy``, ``sys.argv`` set); :func:`example_launches` gives
+# its exact launches
+EXAMPLES = (("quickstart", ()), ("serve_batch", ()),
+            ("train_100m", ("--steps", "300")), ("gossip_ecd_psgd", ()),
+            ("paper_scalability_study", ("--full", "--force")))
+
+
+def example_launches(name, argv=()):
+    """The exact launches of examples/torch_{name}.py run with ``argv`` on
+    the card, by kernel (every kernel not named: 0), worked out from the
+    example and the code it calls."""
+    from repro_torch import interop
+    from repro_torch import tree as T
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.experiments import get_spec
+    from repro_torch.kernels import WRAPPERS
+    from repro_torch.models import model as M
+    want = dict.fromkeys(WRAPPERS, 0)
+    if name == "quickstart":
+        # the advisor's from_dataset on realsim_like 1000 x 400: K1 for
+        # summarize's sparsity, density and Omega and the Hogwild! and
+        # SVRG predictors' Omega; K2 for LS_async's C_sim (one launch over
+        # 8 shifts) and LS_sync's in-batch pairs (one over 125 batches of
+        # 8).  Then the decode step of reduced gemma3-1b (K5 for norm1 and
+        # norm2 of its 2 layers and the final norm), and step 4's
+        # flash_attention (K6) and csim (K2).  loss_fn launches nothing.
+        want.update(l0_rows=5, l0_shift_sum=2 + 1, rmsnorm=5,
+                    flash_attention=1)
+    elif name == "serve_batch":
+        # reduced zamba2-1.2b decodes the longest of 8 mixed prompts (13
+        # tokens) then 32 tokens; each decode step runs K5 5 times: the
+        # Mamba2 layer's norm and gated norm, the shared attention's two
+        # norms, the final norm (one-token attention is plain torch)
+        prompt = max(4 + (i * 3) % 12 for i in range(8))
+        want.update(rmsnorm=5 * (prompt + 32))
+    elif name == "gossip_ecd_psgd":
+        # each step (8 unless --steps) compresses every leaf of the
+        # replicas' stacked tree twice (the neighbours' y, then z): K3
+        # then K4 each time
+        steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv \
+            else 8
+        leaves = len(T.flatten(interop.lm_tree(M.init_params(
+            get_arch("gemma3-1b").reduced(), device="meta")))[0])
+        want.update(quantize_rows=2 * leaves * steps,
+                    dequantize_rows=2 * leaves * steps)
+    elif name == "paper_scalability_study":
+        want.update(expected_launches(get_spec(
+            "scalability_study", quick="--full" not in argv)))
+    elif name != "train_100m":
+        # train_100m: the train steps take the reference's arithmetic, and
+        # the advisor's gradient probes (steps 50, 100, ...) measure
+        # variance, sparsity and cosine similarity in plain torch, as the
+        # reference's do: nothing launches
+        raise KeyError(name)
+    return want
+
+
+class _Tee:
+    """Writes to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.lines)
+
+
+def _run_example(root, name, argv):
+    """Runs examples/torch_{name}.py with ``argv`` in this process, the
+    counters set to 0 just before and read just after; returns (its
+    printed lines, its launches, its wall seconds)."""
+    import contextlib
+    import runpy
+
+    import torch
+    from repro_torch import kernels
+    path = os.path.join(root, "examples", f"torch_{name}.py")
+    saved, tee = sys.argv, _Tee(sys.stdout)
+    sys.argv = [path, *argv]
+    try:
+        with contextlib.redirect_stdout(tee):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            runpy.run_path(path, run_name="__main__")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+    finally:
+        sys.argv = saved
+    return tee.text().splitlines(), launches, wall
+
+
+def run_examples(root, spec_jobs):
+    """Phase examples: each of ``EXAMPLES`` on the card, its output
+    printed as it runs, with exact launch counts
+    (:func:`example_launches`) and checks of what it printed:
+    quickstart's lines equal the same example's on the CPU but for the
+    loss at init (the weights come from a generator on each device);
+    train_100m's loss falls and its advisor probed 5 times; the gossip
+    example asserts its own descent; every m_max of the scalability study
+    equals phase specs' (``spec_jobs``).  Returns the launches by
+    example."""
+    from repro_torch.experiments import get_spec, runner
+    out = {}
+    for name, argv in EXAMPLES:
+        print(f"  example {name} {' '.join(argv)}", flush=True)
+        lines, launches, wall = _run_example(root, name, argv)
+        want = example_launches(name, argv)
+        print(f"  example {name}: wall_s={wall:.3f} launches "
+              f"{json.dumps(launches)}", flush=True)
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want}")
+        if name == "quickstart":
+            cpu = _run_example(root, name, ["--device", "cpu"])[0]
+            differ = [(a, b) for a, b in zip(lines, cpu)
+                      if not a.startswith("gemma3-1b: loss at init")
+                      and a != b]
+            if differ or len(lines) != len(cpu):
+                raise AssertionError(f"quickstart: card and CPU lines "
+                                     f"differ: {differ}")
+        elif name == "train_100m":
+            last = [x for x in lines if x.startswith("trained ")][-1]
+            first, final = (float(x) for x in last.rsplit("loss ", 1)[1]
+                            .split(" -> "))
+            probes = sum("advisor:" in x for x in lines)
+            if not (final < first and probes == 5):
+                raise AssertionError(f"train_100m: {last}, {probes} probes")
+        elif name == "paper_scalability_study":
+            res = runner.run_sweep(get_spec("scalability_study"),
+                                   device="cuda")        # the cached run
+            got = {k: [jr["status"], jr.get("measured_m_max"),
+                       jr.get("predicted", {}).get("predicted_m_max")]
+                   for k, jr in res["jobs"].items()}
+            if got != spec_jobs["scalability_study"]:
+                raise AssertionError(f"study: {got} against phase specs' "
+                                     f"{spec_jobs['scalability_study']}")
+        out[name] = {"wall_s": wall,
+                     "launches": {k: v for k, v in launches.items() if v}}
+    return out
 
 
 def check_specs_against_cpu(iters: int = 60):
@@ -2186,10 +2343,20 @@ def check_robustness(root):
 # trains on a fixed batch), at the example's lr
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 1024, 3e-4
 TRAIN_STEPS = {"sync": 10, "stale": 5}
-# phase train-families: full-width, full-depth zamba2-1.2b and xlstm-350m,
-# sync steps of 4 x 1024 tokens from hmm_stream
-TRAIN_FAMILIES, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_STEPS = (
-    ("zamba2-1.2b", "xlstm-350m"), 4, 5)
+# phase train-families: (arch, layers kept: None for all, positions) at
+# full width, sync steps of 4 sequences from hmm_stream: zamba2-1.2b and
+# xlstm-350m uncut at 1024 tokens; whisper-small uncut at its published
+# 448-token decoder context, with train_loop's zero frames (4, 1500, 768);
+# qwen2-vl-72b cut to 2 of its 80 layers (4.25 B parameters: bf16 weights
+# and gradients and float32 AdamW moments hold 51 GB), 2048 positions:
+# train_loop's zero vision embeddings (4, 1024, 8192) in place of the
+# first 1024 token embeddings, then 1024 text tokens
+TRAIN_FAMILIES = (("zamba2-1.2b", None, 1024), ("xlstm-350m", None, 1024),
+                  ("whisper-small", None, WHISPER_DECODER_TOKENS),
+                  ("qwen2-vl-72b", 2, 2048))
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_STEPS = 4, 5
+# the card's memory: a training peak must stay below it
+CARD_GB = 80
 GOSSIP_REPLICAS, GOSSIP_BATCH, GOSSIP_SEQ, GOSSIP_STEPS = 2, 8, 1024, 4
 GOSSIP_LR = 2e-3
 # K3/K4 at the gossip step's largest leaf (the tied embedding, 262144 x
@@ -2271,16 +2438,21 @@ def run_train(dev):
 
 
 def run_train_families(dev):
-    """Phase train-families: ``train_loop`` at full-width, full-depth
-    zamba2-1.2b and xlstm-350m (bf16, AdamW, every layer recomputed in
-    the backward), ``TRAIN_FAMILY_STEPS`` sync steps each on hmm_stream
-    batches of ``TRAIN_FAMILY_BATCH`` x 1024 tokens, with the counters set
-    to 0 just before and read just after: training takes the reference's
-    arithmetic, so no kernel may launch, and the loss must fall.  Per
+    """Phase train-families: ``train_loop`` for each of ``TRAIN_FAMILIES``
+    at full width (bf16, AdamW, every layer recomputed in the backward),
+    ``TRAIN_FAMILY_STEPS`` sync steps each on hmm_stream batches of
+    ``TRAIN_FAMILY_BATCH`` sequences (whisper's with zero frames,
+    qwen2-vl's with zero vision embeddings, as ``train_loop`` feeds
+    them), with the counters set to 0 just before and read just after:
+    training takes the reference's arithmetic, so no kernel may launch,
+    the loss must fall and the peak memory stay below the card's.  Per
     family: losses, each step's wall ms, the median after the first step,
-    tokens/s, the model flops' share of the bf16 peak, the peak memory,
-    and one more sync step under ``torch.profiler`` (xlstm's sLSTM token
-    loop makes some 10^5 launches a step)."""
+    tokens/s (positions a second, qwen2-vl's vision positions included),
+    the model flops (``launch.analytic``: whisper's count covers the
+    decoder's tokens, not the encoder's 1500 frames) as a share of the
+    bf16 peak, the peak memory, and one more sync step under
+    ``torch.profiler`` (xlstm's sLSTM token loop makes some 10^5 launches
+    a step)."""
     import statistics
 
     import torch
@@ -2294,10 +2466,12 @@ def run_train_families(dev):
     from repro_torch.train import steps as S
 
     report = {}
-    for arch in TRAIN_FAMILIES:
+    for arch, layers, seq in TRAIN_FAMILIES:
         cfg = get_arch(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
         flops = analytic.model_flops(cfg, InputShape(
-            "train", TRAIN_SEQ, TRAIN_FAMILY_BATCH, "train"))["model_flops"]
+            "train", seq, TRAIN_FAMILY_BATCH, "train"))["model_flops"]
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -2305,7 +2479,7 @@ def run_train_families(dev):
         kernels.reset_launch_counts()
         params, losses, step_ms = train_loop(
             cfg, steps=TRAIN_FAMILY_STEPS, batch_size=TRAIN_FAMILY_BATCH,
-            seq_len=TRAIN_SEQ, lr=TRAIN_LR, strategy="sync",
+            seq_len=seq, lr=TRAIN_LR, strategy="sync",
             log_every=TRAIN_FAMILY_STEPS, device=dev)
         launches = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2314,27 +2488,38 @@ def run_train_families(dev):
                                  f"{launches}")
         if not _falls(losses):
             raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+        if not peak < CARD_GB:
+            raise AssertionError(f"{arch}: peak {peak:.1f} GB")
         med = statistics.median(step_ms[1:])
         state = S.init_train_state(cfg, "sync", params=params)
         del params
         step = S.make_train_step(cfg, lr=TRAIN_LR)
         batch = next(hmm_stream(R.PRNGKey(1), LMConfig(
-            cfg.vocab_size, TRAIN_SEQ, TRAIN_FAMILY_BATCH), 1, device=dev))
+            cfg.vocab_size, seq, TRAIN_FAMILY_BATCH), 1, device=dev))
+        dtype = getattr(torch, cfg.dtype)
+        if cfg.vision_tokens:
+            batch["vision_embeds"] = torch.zeros(
+                (TRAIN_FAMILY_BATCH, cfg.vision_tokens, cfg.d_model),
+                dtype=dtype, device=dev)
+        if cfg.encoder_layers:
+            batch["frames"] = torch.zeros(
+                (TRAIN_FAMILY_BATCH, cfg.encoder_seq, cfg.d_model),
+                dtype=dtype, device=dev)
         prof = _profile(lambda: step(state, batch)[1]["loss"].item())
         report[arch] = {
             "layers": cfg.num_layers,
             "params": sum(p.numel() for p in state["model"].parameters()),
             "steps": TRAIN_FAMILY_STEPS,
-            "batch": [TRAIN_FAMILY_BATCH, TRAIN_SEQ], "lr": TRAIN_LR,
+            "batch": [TRAIN_FAMILY_BATCH, seq], "lr": TRAIN_LR,
             "losses": losses, "step_ms": step_ms, "median_step_ms": med,
-            "tokens_per_s": TRAIN_FAMILY_BATCH * TRAIN_SEQ / (med / 1e3),
+            "tokens_per_s": TRAIN_FAMILY_BATCH * seq / (med / 1e3),
             "model_flops": flops,
             "bf16_peak_share": flops / (med / 1e3) / BF16_TENSOR_OPS_PER_S,
             "max_memory_allocated_gb": peak, "launches": launches,
             "profile": prof}
         del state, step, batch
-    gc.collect()
-    torch.cuda.empty_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
     return report
 
 
@@ -2437,7 +2622,9 @@ def check_train_against_cpu(dev):
     the same weights on the card and on the CPU: five ``train_loop`` steps
     each of sync and stale, loss histories within 1e-4 relative; three
     gossip steps at R = 4 on one fixed batch, losses within 1e-3.  Then
-    reduced zamba2-1.2b and xlstm-350m in float32: one sync step's loss
+    the reduced configs of ``TRAIN_FAMILIES`` (zamba2-1.2b, xlstm-350m,
+    whisper-small with frames, qwen2-vl-72b with vision embeddings and
+    grid positions) in float32: one sync step's loss
     (within 1e-4 relative) and every gradient leaf (within 1e-4 of the
     CPU leaf's largest magnitude) from ``train.steps.value_and_grad``, as
     the train step takes them, card against CPU: the families' training
@@ -2487,16 +2674,18 @@ def check_train_against_cpu(dev):
     if not rel <= 1e-3:
         raise AssertionError(f"gossip losses on the card differ from the "
                              f"CPU's by {rel:.3e}: {losses}")
-    for arch in TRAIN_FAMILIES:
+    for arch, _, _ in TRAIN_FAMILIES:
         out[arch] = _family_grads_against_cpu(dev, arch)
     return out
 
 
 def _family_grads_against_cpu(dev, arch):
     """One sync step's loss and gradients of ``arch``'s reduced config in
-    float32 from the same weights and batch on the card and the CPU:
-    the loss within 1e-4 relative, each gradient leaf within 1e-4 of the
-    CPU leaf's largest magnitude."""
+    float32 from the same weights and batch on the card and the CPU
+    (whisper's with 0.1 * normal frames, qwen2-vl's with 0.02 * normal
+    vision embeddings and 3-stream grid positions): the loss within 1e-4
+    relative, each gradient leaf within 1e-4 of the CPU leaf's largest
+    magnitude."""
     import torch
     from repro_torch import interop
     from repro_torch import tree as T
@@ -2510,6 +2699,14 @@ def _family_grads_against_cpu(dev, arch):
     g = torch.Generator().manual_seed(6)
     batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), generator=g,
                               dtype=torch.int32) for k in ("tokens", "labels")}
+    if cfg.encoder_layers:
+        batch["frames"] = 0.1 * torch.randn(4, cfg.encoder_seq, cfg.d_model,
+                                            generator=g)
+    if cfg.vision_tokens:
+        from _torch_mrope import grid_positions
+        batch["vision_embeds"] = 0.02 * torch.randn(
+            4, cfg.vision_tokens, cfg.d_model, generator=g)
+        batch["positions"] = grid_positions(4, 64, cfg.vision_tokens)
     got = {}
     for name, device in (("cpu", torch.device("cpu")), ("gpu", dev)):
         lm = interop.lm_params(cfg, T.tree_map(torch.clone, tree), device)
@@ -2880,6 +3077,8 @@ def main() -> int:
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         return _fail(f"no repro_torch package under {src}")
     sys.path.insert(0, src)
+    # the checkout's torch-only test helpers (tests/_torch_mrope.py)
+    sys.path.insert(1, os.path.join(root, "tests"))
     if sys.argv[1:2] == ["--phase"]:
         # a child phase (phase shard / phase dryrun): its own process
         {"shard": shard_child, "dryrun": dryrun_child}[sys.argv[2]](
@@ -3020,8 +3219,13 @@ def main() -> int:
           f"{json.dumps(agreement)}", flush=True)
 
     t0 = time.perf_counter()
-    spec_launches = run_specs()
+    spec_launches, spec_jobs = run_specs()
     print(f"phase specs: ok in {time.perf_counter() - t0:.2f}s", flush=True)
+
+    t0 = time.perf_counter()
+    examples = run_examples(root, spec_jobs)
+    print(f"phase examples: ok in {time.perf_counter() - t0:.2f}s [{card}] "
+          f"{json.dumps(examples)}", flush=True)
 
     t0 = time.perf_counter()
     spec_agreement = check_specs_against_cpu()
@@ -3142,9 +3346,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_families = run_train_families(dev)
     print(f"phase train-families: ok in {time.perf_counter() - t0:.2f}s "
-          f"[{card}] {' and '.join(TRAIN_FAMILIES)} bf16 AdamW remat "
-          f"{TRAIN_FAMILY_STEPS} sync steps of "
-          f"{TRAIN_FAMILY_BATCH}x{TRAIN_SEQ}", flush=True)
+          f"[{card}] {', '.join(a for a, _, _ in TRAIN_FAMILIES)} bf16 "
+          f"AdamW remat {TRAIN_FAMILY_STEPS} sync steps of "
+          f"{TRAIN_FAMILY_BATCH} sequences", flush=True)
     for arch, rep in train_families.items():
         summary = {k: v for k, v in rep.items() if k != "profile"}
         print(f"  train-families {arch} {json.dumps(summary)}", flush=True)
@@ -3226,6 +3430,9 @@ def main() -> int:
                 "gemma3-1b": launches[name],
                 **{arch: counts[name]
                    for arch, counts in family_launches.items()}}
+        rec["launches_by_example"] = {
+            example: rep["launches"].get(name, 0)
+            for example, rep in examples.items()}
         if name in FUSED_AWAY:
             rec["launches_by_path"] = {
                 "gossip": gossip_launches[name],
@@ -3235,7 +3442,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "also_replaces", "note", "routes", "max_abs_err_by_dtype",
             "decode", "launches_by_spec", "launches_by_path",
-            "launches_by_family", "by_shape")
+            "launches_by_family", "launches_by_example", "by_shape")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys if k in rec}
                                   for rec in records.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,9 +43,11 @@ def _sync(dev):
 
 def train_loop(cfg, *, steps=50, batch_size=8, seq_len=64, lr=1e-3,
                strategy="sync", log_every=10, ckpt=None, advisor_every=0,
-               key=None, params=None, device=DEFAULT_DEVICE):
+               lb_coef=0.01, key=None, params=None, device=DEFAULT_DEVICE):
     """Trains ``cfg`` for ``steps`` steps; returns (the trained
     ``CausalLM``, loss history, wall milliseconds of each step).
+    ``lb_coef`` weighs the MoE load-balance loss, in the steps and in the
+    advisor's gradient probes.
     ``params`` (a ``CausalLM``) replaces the seeded initial weights; the
     train state copies it and leaves it as it was."""
     dev = resolve_device(device)
@@ -55,13 +57,14 @@ def train_loop(cfg, *, steps=50, batch_size=8, seq_len=64, lr=1e-3,
         params = M.init_params(cfg, gen, dev)
     state = init_train_state(cfg, strategy, params=params)
     del params
-    step_fn = make_train_step(cfg, strategy=strategy, lr=lr)
+    step_fn = make_train_step(cfg, strategy=strategy, lr=lr,
+                              lb_coef=lb_coef)
 
     lm_cfg = LMConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                       batch_size=batch_size)
 
     def loss(model, batch):
-        return M.loss_fn(model, cfg, batch)
+        return M.loss_fn(model, cfg, batch, lb_coef=lb_coef)
 
     adv = ScalabilityAdvisor(device=dev)
     history, step_ms = [], []

@@ -95,9 +95,9 @@ def init_cross_attn(gen, cfg: ArchConfig, dtype, device):
 # Masks + core attention math
 # ---------------------------------------------------------------------------
 
-def causal_mask(q_len, kv_len, window=0, device=None):
+def causal_mask(q_len, kv_len, q_offset=0, window=0, device=None):
     """(q_len, kv_len) bool mask.  window=0 -> plain causal."""
-    qi = torch.arange(q_len, device=device)[:, None]
+    qi = torch.arange(q_len, device=device)[:, None] + q_offset
     kj = torch.arange(kv_len, device=device)[None, :]
     m = kj <= qi
     if window:

@@ -398,17 +398,18 @@ def _encoder_layer(p: Block, cfg: ArchConfig, h):
     return h + apply_mlp(p.mlp, x2, cfg.mlp_kind)
 
 
-def encode(encoder: WhisperEncoder, cfg: ArchConfig, frames, remat=False):
-    """frames: (B, encoder_seq, d), the stubbed conv front end's output in
-    the model's type -> the encoder's final-norm output.  ``remat=True``
+def encode(params: WhisperEncoder, cfg: ArchConfig, frames, remat=False):
+    """``params`` is the model's encoder (``CausalLM.encoder``); frames:
+    (B, encoder_seq, d), the stubbed conv front end's output in the
+    model's type -> the encoder's final-norm output.  ``remat=True``
     recomputes each layer in the backward pass."""
-    h = frames + encoder.pos["pos"][None, :frames.shape[1]]
-    for layer in encoder.layers:
+    h = frames + params.pos["pos"][None, :frames.shape[1]]
+    for layer in params.layers:
         if remat:
             h = checkpoint(_encoder_layer, layer, cfg, h, use_reentrant=False)
         else:
             h = _encoder_layer(layer, cfg, h)
-    return apply_norm(cfg.norm, encoder.final_norm, h)
+    return apply_norm(cfg.norm, params.final_norm, h)
 
 
 def _segment_ends(cfg: ArchConfig):
@@ -478,12 +479,13 @@ def project_logits(params: CausalLM, cfg: ArchConfig, h):
     return logits.to(torch.float32)
 
 
-def forward(params: CausalLM, cfg: ArchConfig, batch, *,
+def forward(params: CausalLM, cfg: ArchConfig, batch, *, remat=False,
             attention_impl="kernel", constrain=None):
     """Prefill forward returning full logits.  Returns (logits, aux);
-    ``constrain`` pins the residual stream and the logits."""
+    ``remat`` as in :func:`forward_hidden`; ``constrain`` pins the
+    residual stream and the logits."""
     constrain = constrain or (lambda x: x)
-    h, aux = forward_hidden(params, cfg, batch,
+    h, aux = forward_hidden(params, cfg, batch, remat=remat,
                             attention_impl=attention_impl,
                             constrain=constrain)
     return constrain(project_logits(params, cfg, h)), aux
@@ -565,13 +567,19 @@ def chunked_ce(params: CausalLM, cfg: ArchConfig, h, labels, *, chunk=0,
 
 
 def loss_fn(params: CausalLM, cfg: ArchConfig, batch, *, remat=False,
-            lb_coef=0.01, constrain=None, ce_chunk=0, constrain_layer=None,
-            constrain_logits=None, constrain_inner=None,
-            constrain_head=None):
+            attention_impl="reference", lb_coef=0.01, constrain=None,
+            ce_chunk=0, constrain_layer=None, constrain_logits=None,
+            constrain_inner=None, constrain_head=None):
     """Next-token cross-entropy (+ MoE load-balance aux, zero for the
     dense families): ``(total, {"ce_loss", "load_balance_loss"})``.
-    Always the reference's arithmetic (no kernel); ``constrain*`` are the
-    mesh hooks of :func:`forward_hidden` and :func:`chunked_ce`."""
+    Always the reference's arithmetic: ``attention_impl`` takes
+    ``"reference"`` only, since the kernels have no backward pass (the
+    reference cannot differentiate through its Pallas kernels either);
+    ``constrain*`` are the mesh hooks of :func:`forward_hidden` and
+    :func:`chunked_ce`."""
+    if attention_impl != "reference":
+        raise ValueError(f"attention_impl {attention_impl!r}: training "
+                         f"takes the reference's arithmetic")
     h, aux = forward_hidden(params, cfg, batch, remat=remat,
                             attention_impl="reference", constrain=constrain,
                             constrain_layer=constrain_layer,
@@ -662,14 +670,16 @@ def _decode_block(p: Block, cfg: ArchConfig, h, cache, *, position, h0,
 
 
 def decode_step(params: CausalLM, cfg: ArchConfig, tokens, state, *,
-                enc_out=None, constrain=None):
+                enc_out=None, vision_embeds=None, constrain=None):
     """tokens: (B, 1) -> (logits (B, 1, V) float32, new state).  KV caches
     are updated in place; SSM layers get new states in the new state's
     list.  ``enc_out`` is the encoder's output that the cross-attending
-    layers read.  A learned position past the table reads its last row,
-    as the reference's clamped slice does.  ``constrain`` pins h after
-    the embedding, after every layer and after every segment (the
-    reference's decode hook, ``decode_act_constraint``)."""
+    layers read; ``vision_embeds`` is accepted and unused, as in the
+    reference (decoding feeds text tokens only).  A learned position past
+    the table reads its last row, as the reference's clamped slice does.
+    ``constrain`` pins h after the embedding, after every layer and after
+    every segment (the reference's decode hook,
+    ``decode_act_constraint``)."""
     constrain = constrain or (lambda x: x)
     h = DL.embedding(tokens, params.embed["table"])
     h = constrain(h)

@@ -4,5 +4,6 @@ momentum, AdamW as init/update pairs over trees of tensors), the port of
 ``repro_torch.core.algorithms`` carry their own update rules."""
 
 from repro_torch.optim.optimizers import (adamw_init, adamw_update,
-                                          momentum_init, momentum_update,
-                                          sgd_init, sgd_update)
+                                          adamw_update_, momentum_init,
+                                          momentum_update, sgd_init,
+                                          sgd_update)

@@ -114,16 +114,18 @@ def make_stream(spec: FaultSpec, shape: Tuple[int, ...],
             for name, tag in _TAGS.items()}
 
 
-def delivery_scale(events):
+def delivery_scale(stream_slice):
     """Multiplier a delivered update lands with: ``(1 - drop)(1 + dup)``,
-    0 for a lost message, 2 for a duplicated one, exactly 1.0 otherwise."""
-    return (1.0 - events["drop"]) * (1.0 + events["dup"])
+    0 for a lost message, 2 for a duplicated one, exactly 1.0 otherwise.
+    ``stream_slice`` is :func:`make_stream`'s dict indexed at the
+    update."""
+    return (1.0 - stream_slice["drop"]) * (1.0 + stream_slice["dup"])
 
 
-def extra_staleness(spec: FaultSpec, events):
+def extra_staleness(spec: FaultSpec, stream_slice):
     """int64 extra rounds of staleness a straggle event adds (0 when the
     event did not fire)."""
-    return (events["straggle"] * spec.straggle_rounds).to(torch.int64)
+    return (stream_slice["straggle"] * spec.straggle_rounds).to(torch.int64)
 
 
 def corrupt(spec: FaultSpec, g, flag):

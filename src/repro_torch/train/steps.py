@@ -60,7 +60,7 @@ from repro_torch.distributed import local as DL
 from repro_torch.distributed import rules as RU
 from repro_torch.distributed.mesh import check_model_mesh
 from repro_torch.models import model as M
-from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.optim import adamw_init, adamw_update_
 
 
 def mesh_context(mesh):
@@ -178,9 +178,13 @@ def _global_norm(tree):
 def make_train_step(cfg: ArchConfig, mesh=None, *, strategy="sync",
                     lr=3e-4, remat=True, attention_impl="reference",
                     seq_shard=True, grad_shard=True, microbatches=1,
-                    grad_accum_dtype=torch.float32, accum_mode="explicit"):
+                    grad_accum_dtype=torch.float32, accum_mode="explicit",
+                    lb_coef=0.01):
     """``step(state, batch) -> (state, metrics)`` for ``strategy``
-    ``sync`` or ``stale``; ``microbatches`` > 1 accumulates gradients
+    ``sync`` or ``stale``, the loss weighing the MoE load-balance term by
+    ``lb_coef`` (the reference's ``train_loop`` argument; its own
+    ``make_train_step`` takes ``loss_fn``'s default, 0.01);
+    ``microbatches`` > 1 accumulates gradients
     either per microbatch in ``grad_accum_dtype`` (``accum_mode
     "explicit"``) or in the backward pass of the summed loss
     (``"in-loss"``).  The loss takes the reference's arithmetic
@@ -214,7 +218,8 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, strategy="sync",
                          constrain_head=RU.head_constraint(mesh))
 
     def loss(lm, batch):
-        return M.loss_fn(lm, cfg, batch, remat=remat, **hooks)
+        return M.loss_fn(lm, cfg, batch, remat=remat, lb_coef=lb_coef,
+                         **hooks)
 
     def place(batch):
         if mesh is None:
@@ -259,15 +264,8 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, strategy="sync",
         return acc_l / microbatches, aux, grads
 
     def apply(state, grads):
-        new_p, new_opt = adamw_update(state["params"], grads, state["opt"],
-                                      lr=lr)
-        with torch.no_grad():       # the model's parameters are views
-            for p, q in zip(T.flatten(state["params"])[0],
-                            T.flatten(new_p)[0]):
-                if DL.is_dtensor(q) and q.placements != p.placements:
-                    q = q.redistribute(p.device_mesh, p.placements)
-                p.copy_(q)
-        return new_opt
+        # in place: the model's parameters are views of the state's leaves
+        return adamw_update_(state["params"], grads, state["opt"], lr=lr)
 
     def metrics_of(l, aux, grads):
         return {"loss": _plain(l), "ce_loss": _plain(aux["ce_loss"]),
@@ -335,17 +333,17 @@ def _replica_placements(mesh):
     return RU.to_placements(RU.P(RU.data_axes(mesh)), mesh)
 
 
-def init_gossip_state(cfg: ArchConfig, replicas=None, *, params=None,
+def init_gossip_state(cfg: ArchConfig, n_replicas=None, *, params=None,
                       generator=None, device=DEFAULT_DEVICE, mesh=None):
     """{"params": tree, "y": tree, "models", "step"}: the reference's
-    parameter pytree with a leading replica axis of ``replicas``, every
+    parameter pytree with a leading replica axis of ``n_replicas``, every
     replica starting from the same weights (``params`` or drawn from
     ``generator``), the extrapolation variables ``y`` equal to them, and
     one ``CausalLM`` per replica whose parameters are views of its slice
     of ``params``.
 
     With ``mesh`` the replica axis lies over the data axes
-    (``replicas`` is :func:`replicas_of` the mesh): each leaf is a DTensor
+    (``n_replicas`` is :func:`replicas_of` the mesh): each leaf is a DTensor
     of global shape (R, ...) whose local shard is this rank's replica,
     and ``models`` holds the one ``CausalLM`` of this rank's replica,
     views of the local shards."""
@@ -356,9 +354,9 @@ def init_gossip_state(cfg: ArchConfig, replicas=None, *, params=None,
     if mesh is not None:
         from torch.distributed.tensor import DTensor
         n_rep = replicas_of(mesh)
-        if replicas not in (None, n_rep):
-            raise ValueError(f"replicas={replicas}: the mesh's data axes "
-                             f"hold {n_rep}")
+        if n_replicas not in (None, n_rep):
+            raise ValueError(f"n_replicas={n_replicas}: the mesh's data "
+                             f"axes hold {n_rep}")
         pl = _replica_placements(mesh)
 
         cmesh = RU.compute_mesh(mesh)
@@ -374,10 +372,11 @@ def init_gossip_state(cfg: ArchConfig, replicas=None, *, params=None,
                     lambda x: x.to_local()[0], stack_p))],
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=lm.embed["table"].device)}
-    stack = T.tree_map(lambda x: x.expand(replicas, *x.shape).clone(), tree)
+    stack = T.tree_map(lambda x: x.expand(n_replicas, *x.shape).clone(),
+                       tree)
     return {"params": stack, "y": T.tree_map(torch.clone, stack),
             "models": [_model(cfg, T.tree_map(lambda x: x[r], stack))
-                       for r in range(replicas)],
+                       for r in range(n_replicas)],
             "step": torch.zeros((), dtype=torch.int32,
                                 device=lm.embed["table"].device)}
 

@@ -1,6 +1,6 @@
 """Qwen2-VL's M-RoPE position ids for a prompt that opens with vision
-patches (arXiv:2409.12191 §2.1), shared by the CPU and card tests: this
-module imports only torch."""
+patches (arXiv:2409.12191 §2.1), shared by the CPU and card tests and
+chip_smoke.py: this module imports only torch."""
 
 import math
 

@@ -119,3 +119,29 @@ def test_tree_order_is_the_references():
     leaves, rebuild = T.flatten(params)
     again = rebuild(leaves)
     assert T.flatten_with_path(again) == got
+
+
+@pytest.mark.parametrize("slice_", [7, 2 ** 26])
+def test_adamw_update_in_place_equals_functional(slice_, monkeypatch):
+    """The train step's in-place AdamW (``adamw_update_``, leaf by leaf in
+    slices) writes exactly ``adamw_update``'s new parameters and moments
+    into its inputs, bf16 and float32 leaves, decayed and not, with a
+    slice that cuts leaves unevenly and one that holds them whole."""
+    monkeypatch.setattr(O.optimizers, "ADAMW_SLICE", slice_)
+    rng = np.random.default_rng(3)
+    params = {"w": torch.tensor(rng.normal(size=(5, 9)),
+                                dtype=torch.bfloat16),
+              "b": torch.tensor(rng.normal(size=(11,)), dtype=torch.float32)}
+    state = O.adamw_init(params)
+    for _ in range(3):
+        grads = {k: torch.tensor(rng.normal(size=v.shape)).to(v.dtype)
+                 for k, v in params.items()}
+        want_p, want_s = O.adamw_update(params, grads, state, lr=0.05)
+        moments = (state["m"], state["v"])
+        state = O.adamw_update_(params, grads, state, lr=0.05)
+        assert state["m"] is moments[0] and state["v"] is moments[1]
+        assert int(state["count"]) == int(want_s["count"])
+        for k in params:
+            assert torch.equal(params[k], want_p[k])
+            assert torch.equal(state["m"][k], want_s["m"][k])
+            assert torch.equal(state["v"][k], want_s["v"][k])

@@ -1,7 +1,9 @@
-"""Package rules of the port: no JAX and no reference imports, GPU by
-default with no silent fall-back to the CPU, and chip_smoke.py failing
-without a GPU or outside a checkout."""
+"""Package rules of the port: no JAX and no reference imports (the
+package, chip_smoke.py and the port's examples, ``examples/torch_*.py``),
+GPU by default with no silent fall-back to the CPU, and chip_smoke.py
+failing without a GPU or outside a checkout."""
 
+import glob
 import os
 import re
 import shutil
@@ -14,6 +16,7 @@ import torch
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 PORT = os.path.join(ROOT, "src", "repro_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
+EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py")))
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)
@@ -25,6 +28,7 @@ def _sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield SMOKE
+    yield from EXAMPLES
 
 
 def test_no_jax_or_reference_imports():
@@ -38,11 +42,15 @@ def test_no_jax_or_reference_imports():
 
 
 def test_package_imports_without_jax():
-    """Importing every port module pulls in neither jax nor repro."""
-    code = ("import sys, pkgutil, importlib, repro_torch\n"
+    """Importing every port module, and loading each of the port's
+    examples, pulls in neither jax nor repro."""
+    assert len(EXAMPLES) == 5
+    code = ("import sys, pkgutil, importlib, runpy, repro_torch\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, "
             "'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            f"for path in {EXAMPLES!r}:\n"
+            "    runpy.run_path(path, run_name='example')\n"
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith(('jax.', 'repro.')) or k == 'repro']\n"
             "assert not bad, bad\n")

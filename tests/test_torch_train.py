@@ -153,8 +153,8 @@ def test_microbatched_matches_full(accum_mode, monkeypatch):
 
         def capture(params, g, opt, **kw):
             captured.update(T.flatten_with_path(g))
-            return params, opt
-        monkeypatch.setattr(S, "adamw_update", capture)
+            return opt
+        monkeypatch.setattr(S, "adamw_update_", capture)
         state = S.init_train_state(cfg, params=_port_params("qwen2.5-3b"))
         step = S.make_train_step(cfg, microbatches=mb, accum_mode=accum_mode)
         _, metrics = step(state, _tbatch(batch))
@@ -194,12 +194,12 @@ def test_train_step_updates_match_reference(arch, strategy, monkeypatch):
     _, cfg, rparams, _ = _setup(arch)
     rng = np.random.default_rng(7)
     seen = []
-    real = S.adamw_update
+    real = S.adamw_update_
 
     def record(params, grads, opt, **kw):
         seen.append((T.tree_map(lambda g: g.numpy().copy(), grads), kw))
         return real(params, grads, opt, **kw)
-    monkeypatch.setattr(S, "adamw_update", record)
+    monkeypatch.setattr(S, "adamw_update_", record)
     state = S.init_train_state(cfg, strategy,
                                params=interop.lm_params(cfg, rparams))
     step = S.make_train_step(cfg, strategy=strategy, lr=2e-3)
