@@ -22,6 +22,7 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch import random as R
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 #: name -> generator ``fn(key, **kwargs) -> Dataset``; latest wins.
 GENERATORS: Dict[str, Callable] = {}
@@ -43,8 +44,9 @@ def get_generator(name: str) -> Callable:
                        f"known: {sorted(GENERATORS)}") from None
 
 
-def ruler(d, device="cpu"):
-    r = torch.arange(1, d + 1, dtype=torch.float32, device=device)
+def ruler(d, device=DEFAULT_DEVICE):
+    r = torch.arange(1, d + 1, dtype=torch.float32,
+                     device=resolve_device(device))
     return r * torch.pow(-1.0, r)
 
 

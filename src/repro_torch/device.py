@@ -28,3 +28,10 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def resolve_device_or_meta(device=DEFAULT_DEVICE) -> torch.device:
+    """:func:`resolve_device`, but ``"meta"`` (shapes only) passes
+    through."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)

@@ -144,7 +144,7 @@ def run_hogwild_sharded(train, test, *, m: int = 8, iters: int = 4000,
             f"racing mode applies m gradients per round and evals on "
             f"round boundaries")
     home = dmesh.devices[0]
-    key = (key if key is not None else R.PRNGKey(0)).to(home)
+    key = key.to(home) if key is not None else R.PRNGKey(0, device=home)
     n = train.X.shape[0]
     w = -(-m // D)                       # worker slots per shard
     n_evals = iters // eval_every

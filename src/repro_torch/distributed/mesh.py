@@ -3,10 +3,10 @@
 ``repro/distributed/mesh.py``).
 
 A :class:`DeviceMesh` is auto-detected (:func:`get_mesh`: every CUDA
-device, or the one CPU), overridable to a prefix of that list
-(``devices=4``), and degrades to a single-device fallback
-(``n_devices == 1``) on which the engine takes its unsharded path bit
-for bit.  :func:`from_devices` builds a mesh over any device list,
+device, or the one CPU when the caller names it), overridable to a
+prefix of that list (``devices=4``), and degrades to a single-device
+fallback (``n_devices == 1``) on which the engine takes its unsharded
+path bit for bit.  :func:`from_devices` builds a mesh over any device list,
 repeats included: ``from_devices([dev] * N)`` is N shards on one device,
 run one after another, the port's counterpart of the reference's
 ``--xla_force_host_platform_device_count=N`` virtual devices.  The mesh
@@ -28,6 +28,8 @@ import warnings
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 #: the sweep mesh's single axis name (the batched grid-element axis)
 SHARD_AXIS = "shard"
@@ -64,22 +66,24 @@ MeshLike = Union[None, str, int, DeviceMesh]
 _CLAMP_WARNED = False
 
 
-def available(device=None) -> Tuple[torch.device, ...]:
-    """The devices ``"auto"`` takes: every CUDA device, or the one CPU.
-    ``device`` (a type or device) restricts the pool to its type."""
-    kind = torch.device(device).type if device is not None else (
-        "cuda" if torch.cuda.is_available() else "cpu")
+def available(device=DEFAULT_DEVICE) -> Tuple[torch.device, ...]:
+    """The devices ``"auto"`` takes: every CUDA device, or the one CPU
+    when ``device`` (a type or device) names it.  Raises as
+    :func:`~repro_torch.device.resolve_device` does for CUDA on a host
+    without it."""
+    kind = resolve_device(device).type
     if kind == "cpu":
         return (torch.device("cpu"),)
     return tuple(torch.device("cuda", i)
                  for i in range(torch.cuda.device_count()))
 
 
-def get_mesh(devices: MeshLike = None, *, device=None) -> DeviceMesh:
+def get_mesh(devices: MeshLike = None, *,
+             device=DEFAULT_DEVICE) -> DeviceMesh:
     """Resolve a sweep mesh from a ``--devices``-style request.
 
-    ``None`` / ``"auto"`` take every available device (:func:`available`,
-    of ``device``'s type when given); an int takes the first ``devices``
+    ``None`` / ``"auto"`` take every available device of ``device``'s
+    type (:func:`available`); an int takes the first ``devices``
     of them, so 1 forces the fallback; a :class:`DeviceMesh` passes
     through.  Asking for more devices than exist clamps to what the host
     has, with a one-shot warning: results are mesh-invariant, so the
@@ -88,8 +92,6 @@ def get_mesh(devices: MeshLike = None, *, device=None) -> DeviceMesh:
     if isinstance(devices, DeviceMesh):
         return devices
     avail = available(device)
-    if not avail:
-        raise ValueError("no CUDA device is available for the mesh")
     if devices is None or devices == "auto":
         n = len(avail)
     else:
@@ -120,7 +122,8 @@ def from_devices(devs: Sequence) -> DeviceMesh:
     return DeviceMesh(devs)
 
 
-def resolve(mesh: MeshLike, *, device=None) -> Optional[DeviceMesh]:
+def resolve(mesh: MeshLike, *,
+            device=DEFAULT_DEVICE) -> Optional[DeviceMesh]:
     """Engine-side resolution: ``None`` means "no distribution requested"
     (not "auto"), so every existing caller keeps the unsharded path."""
     if mesh is None:
@@ -139,15 +142,15 @@ PRODUCTION_SHAPE = (32, 8)
 
 def _named_mesh(shape, names, device_type):
     from torch.distributed.device_mesh import init_device_mesh as _init
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
-    return _init(device_type, tuple(shape), mesh_dim_names=tuple(names))
+    return _init(resolve_device(device_type).type, tuple(shape),
+                 mesh_dim_names=tuple(names))
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type=DEFAULT_DEVICE):
     """256 ranks as (data 32, model 8), or 512 as (pod 2, data 32, model 8)
     with ``multi_pod``, over the process group in force (its world size
-    must match).
+    must match), on the card unless ``device_type`` names the CPU.
 
     The reference's production mesh is a TPU pod's 16 x 16 torus, whose
     links are alike along both axes.  An H100 machine has two tiers: 8
@@ -163,9 +166,10 @@ def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     return _named_mesh((data, model), ("data", "model"), device_type)
 
 
-def make_debug_mesh(data=2, model=2, pod=0, *, device_type=None):
+def make_debug_mesh(data=2, model=2, pod=0, *, device_type=DEFAULT_DEVICE):
     """A small (data, model) mesh, or (pod, data, model) when ``pod``,
-    over the process group in force."""
+    over the process group in force, on the card unless ``device_type``
+    names the CPU."""
     if pod:
         return _named_mesh((pod, data, model), ("pod", "data", "model"),
                            device_type)

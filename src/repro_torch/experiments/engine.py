@@ -195,7 +195,7 @@ def sweep(algorithm: Union[str, alg_base.Algorithm], train, test,
         alg = alg_base.get_algorithm(algorithm)(**alg_kwargs)
     prob = problems_mod.resolve_problem(problem, lam)
     dev = train.X.device
-    key = (key if key is not None else R.PRNGKey(0)).to(dev)
+    key = key.to(dev) if key is not None else R.PRNGKey(0, device=dev)
     if n_seeds < 1:
         raise ValueError(f"n_seeds={n_seeds} must be >= 1")
 

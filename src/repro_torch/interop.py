@@ -31,30 +31,33 @@ import torch
 from torch import nn
 
 from repro_torch import random as R
+from repro_torch.device import (DEFAULT_DEVICE, resolve_device,
+                                resolve_device_or_meta)
 from repro_torch.data.synth import Dataset
 
 
 def _tensor(a, dtype, device):
-    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    return torch.tensor(np.asarray(a), dtype=dtype,
+                        device=resolve_device(device))
 
 
-def dataset(X, y, name: str = "", device="cpu") -> Dataset:
+def dataset(X, y, name: str = "", device=DEFAULT_DEVICE) -> Dataset:
     return Dataset(_tensor(X, torch.float32, device),
                    _tensor(y, torch.float32, device), name)
 
 
-def split(*parts, device="cpu"):
+def split(*parts, device=DEFAULT_DEVICE):
     """``split((Xtr, ytr), (Xva, yva)[, (Xte, yte)])`` -> datasets."""
     tags = (":train", ":valid", ":test")
     return tuple(dataset(X, y, tag, device)
                  for (X, y), tag in zip(parts, tags))
 
 
-def model(x, device="cpu") -> torch.Tensor:
+def model(x, device=DEFAULT_DEVICE) -> torch.Tensor:
     return _tensor(x, torch.float32, device)
 
 
-def draws(algorithm: str, ref_draws, d: int, device="cpu"):
+def draws(algorithm: str, ref_draws, d: int, device=DEFAULT_DEVICE):
     """The reference's ``make_draws`` pytree for ``algorithm`` -> the
     port's draws.  Sample indices become int64; ECD-PSGD's ``keys``
     (iters, m_top, 2) uint32 become ``u`` (iters, m_top, d), the uniform
@@ -138,7 +141,7 @@ def _put_layers(blocks, stack, n, device):
                 _set_leaf(block, part, stack[part], layer, device)
 
 
-def lm_params(cfg, params, device="cpu"):
+def lm_params(cfg, params, device=DEFAULT_DEVICE):
     """The reference's ``models.model.init_params`` pytree, its leaves as
     numpy arrays or tensors, -> the port's ``CausalLM`` with the same
     weights.  Each segment's leading (layer) axis is unstacked into
@@ -150,6 +153,7 @@ def lm_params(cfg, params, device="cpu"):
     segment is) follow the pytree.  Tensor leaves already on
     ``device`` are not copied: each parameter is a view of its leaf."""
     from repro_torch.models import model as M
+    device = resolve_device_or_meta(device)
     lm = M.CausalLM(cfg, None, torch.device("meta"))
     want = {"embed", "final_norm", "segments"} | {
         name for name in _OPTIONAL_TOPS if hasattr(lm, name)}

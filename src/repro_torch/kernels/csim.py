@@ -9,12 +9,16 @@ returns each batch's integer total ``sum_{j=1..r} sum_i ||x_i -
 x_{(i+j) % b}||_0``.  One kernel serves Eq. 3's C_sim (``nb=1, b=n,
 r=range``) and the within-batch pair scan of LS_sync (``r=b-1``).
 
-K1 is bound by bytes read.  K2 is bound by launch latency at the main
-path's shapes: it is one launch with no fill, its blocks staging their
-rows in shared memory and meeting through counters that the wrapper
-keeps per (device, stream), zeroed once (:func:`shift_sum_plan` picks
-the blocks and the kernel takes them as given; ``csrc/l0.cu`` says
-why).
+K1 is bound by bytes read, and at the main path's shapes by the launch
+and one round trip to device memory: it packs rows of at most 128
+floats several to a warp and gives wider rows a warp each, every load
+16 bytes wide and issued before the first compare (``csrc/l0.cu`` picks
+the form from d and the inputs' alignment).  K2 is bound by launch
+latency at the main path's shapes: it is one launch with no fill, its
+blocks staging their rows in shared memory and meeting through counters
+that the wrapper keeps per (device, stream), zeroed once
+(:func:`shift_sum_plan` picks the blocks and the kernel takes them as
+given; ``csrc/l0.cu`` says why).
 Counts are exact integers, so kernel and plain version agree exactly
 whatever the order of summation.
 """

@@ -4,9 +4,34 @@
 // K1 repro_l0_rows replaces the Pallas kernel src/repro/kernels/csim.py
 // (_l0_kernel / l0_rows).  It counts |x_ik - y_ik| > tol per row, or
 // |x_ik| > tol when y is null (the row supports: one input read, no zero
-// tensor).  Bound on this card: bytes read, each input element once.
-// Design: one warp per row, lanes striding the feature axis so a warp
-// reads 128 contiguous bytes per step, and a shuffle reduction.
+// tensor).  Bound on this card: bytes read, each input element once; at
+// the main path's shapes (512 to 4096 rows of 28 to 400 floats, 57 KB to
+// 6.4 MB) that is 0.02-1.9 us, so the launch and one round trip to device
+// memory set the time, and the design keeps every thread's loads in
+// flight at once, one round trip deep:
+// - 16-byte loads when d % 4 == 0 and both inputs are 16-byte aligned
+//   (then every row is); the scalar form otherwise (a view one float off,
+//   odd d), and for rows of at most 32 floats, where one 4-byte load a
+//   lane already reads the row: at 512 rows of 28 an H100 took 1.46 us
+//   that way against 1.50-1.53 us packed four rows to a warp
+//   (scripts/time_kernels.py).
+// - Narrow rows (32 < d <= 128, 9 to 32 float4s) take L = 16 or 32
+//   lanes (the power of two at or above d / 4), two rows or one a warp:
+//   each lane makes one load of each input, so 1536 x 48 and 4096 x 64
+//   are one load deep.
+// - Wider rows take one warp each and issue all of a lane's loads of a
+//   512-float pass (4 of each input) before the first compare.
+// - Counts are 32-bit integers summed by __reduce_add_sync over the row's
+//   lanes (a segment mask for packed rows), written as float.
+// - 128-thread blocks, so 512 wide rows are 128 blocks, about one per SM,
+//   and 4000 rows are 1000.
+// Timed on an H100 against thirteen other layouts of the one-input form
+// (blocks of 32 to 256 threads, 1, 2 or 4 rows a warp in flight, 16 or 32
+// lanes a row, an L2::256B prefetch hint), none more than 1.5 % faster at
+// 512 to 4000 rows of 300 and 400 floats: what is left above the bound
+// is the latency of a read from device memory, not the layout.
+// Counts are exact, so the output equals l0_rows_plain bit for bit; NaN
+// compares false and a negative tol counts every other value, as there.
 //
 // K2 repro_l0_shift_sum replaces the Pallas scan csim.py:64 (csim_kernel,
 // one l0_rows call through _l0_kernel :24 per rolled copy of X) and the
@@ -75,28 +100,100 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kL0Threads = 128;
+constexpr int kL0Warps = kL0Threads / 32;
+constexpr int kL0Unroll = 4;  // float4s of each input a lane holds a pass
 
 template <bool kHasY>
-__global__ void l0_rows_kernel(const float* __restrict__ x,
-                               const float* __restrict__ y,
-                               float* __restrict__ out, int64_t n, int64_t d,
-                               float tol) {
+__device__ __forceinline__ unsigned int hits4(const float4 a, const float4 b,
+                                              float tol) {
+  if (kHasY) {
+    return (fabsf(a.x - b.x) > tol) + (fabsf(a.y - b.y) > tol) +
+           (fabsf(a.z - b.z) > tol) + (fabsf(a.w - b.w) > tol);
+  }
+  return (fabsf(a.x) > tol) + (fabsf(a.y) > tol) + (fabsf(a.z) > tol) +
+         (fabsf(a.w) > tol);
+}
+
+// 8 < d4 = d / 4 <= 32 float4s a row; L = 1 << lanes_log2 >= d4 lanes a
+// row (16 or 32), 32 / L rows a warp.  A segment is one row, so it exits
+// whole.
+template <bool kHasY>
+__global__ void __launch_bounds__(kL0Threads)
+    l0_rows_narrow_kernel(const float4* __restrict__ x,
+                          const float4* __restrict__ y,
+                          float* __restrict__ out, int64_t n, int d4,
+                          int lanes_log2, float tol) {
   const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int seg = lane >> lanes_log2;
+  const int k = lane & ((1 << lanes_log2) - 1);
+  const int64_t warp = ((int64_t)blockIdx.x * kL0Threads + threadIdx.x) >> 5;
+  const int64_t row = (warp << (5 - lanes_log2)) + seg;
+  if (row >= n) return;
+  unsigned int count = 0;
+  if (k < d4) {
+    const float4 a = __ldg(x + row * d4 + k);
+    const float4 b = kHasY ? __ldg(y + row * d4 + k) : a;
+    count = hits4<kHasY>(a, b, tol);
+  }
+  const unsigned int lanes = 1u << lanes_log2;
+  const unsigned int mask =
+      lanes == 32 ? 0xffffffffu : ((1u << lanes) - 1u) << (seg * lanes);
+  count = __reduce_add_sync(mask, count);
+  if (k == 0) out[row] = (float)count;
+}
+
+// One warp a row of d4 > 32 float4s, in passes of 32 * kL0Unroll.
+template <bool kHasY>
+__global__ void __launch_bounds__(kL0Threads)
+    l0_rows_wide_kernel(const float4* __restrict__ x,
+                        const float4* __restrict__ y, float* __restrict__ out,
+                        int64_t n, int d4, float tol) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = ((int64_t)blockIdx.x * kL0Threads + threadIdx.x) >> 5;
+  if (row >= n) return;  // uniform across the warp
+  const float4* xr = x + row * d4;
+  const float4* yr = kHasY ? y + row * d4 : xr;
+  unsigned int count = 0;
+  for (int base = lane; base < d4; base += 32 * kL0Unroll) {
+    float4 a[kL0Unroll], b[kL0Unroll];
+#pragma unroll
+    for (int u = 0; u < kL0Unroll; ++u) {
+      const int k = base + 32 * u;
+      if (k < d4) {
+        a[u] = __ldg(xr + k);
+        if (kHasY) b[u] = __ldg(yr + k);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kL0Unroll; ++u) {
+      if (base + 32 * u < d4) {
+        count += hits4<kHasY>(a[u], kHasY ? b[u] : a[u], tol);
+      }
+    }
+  }
+  count = __reduce_add_sync(0xffffffffu, count);
+  if (lane == 0) out[row] = (float)count;
+}
+
+// Any d and alignment: one warp a row, lanes striding the features.
+template <bool kHasY>
+__global__ void __launch_bounds__(kL0Threads)
+    l0_rows_scalar_kernel(const float* __restrict__ x,
+                          const float* __restrict__ y,
+                          float* __restrict__ out, int64_t n, int64_t d,
+                          float tol) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = ((int64_t)blockIdx.x * kL0Threads + threadIdx.x) >> 5;
   if (row >= n) return;  // uniform across the warp
   const float* xr = x + row * d;
+  const float* yr = kHasY ? y + row * d : xr;
   unsigned int count = 0;
-  if (kHasY) {
-    const float* yr = y + row * d;
-    for (int64_t k = lane; k < d; k += 32) {
-      count += fabsf(xr[k] - yr[k]) > tol;
-    }
-  } else {
-    for (int64_t k = lane; k < d; k += 32) count += fabsf(xr[k]) > tol;
+#pragma unroll 4
+  for (int64_t k = lane; k < d; k += 32) {
+    count += fabsf(kHasY ? xr[k] - yr[k] : xr[k]) > tol;
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    count += __shfl_down_sync(0xffffffffu, count, off);
-  }
+  count = __reduce_add_sync(0xffffffffu, count);
   if (lane == 0) out[row] = (float)count;
 }
 
@@ -249,20 +346,43 @@ __global__ void __launch_bounds__(kThreads)
 
 __global__ void empty_kernel() {}
 
+template <bool kHasY>
+cudaError_t launch_l0_rows(const float* x, const float* y, float* out,
+                           int64_t n, int64_t d, float tol, cudaStream_t s) {
+  const bool vec = d % 4 == 0 && ((uintptr_t)x & 15) == 0 &&
+                   (!kHasY || ((uintptr_t)y & 15) == 0);
+  const int64_t d4 = d / 4;
+  if (vec && d4 > 8 && d4 <= 32) {
+    int lanes_log2 = 0;
+    while ((1 << lanes_log2) < d4) ++lanes_log2;
+    const int64_t rows_per_block = (int64_t)kL0Warps << (5 - lanes_log2);
+    const int64_t blocks = (n + rows_per_block - 1) / rows_per_block;
+    if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+    l0_rows_narrow_kernel<kHasY><<<(unsigned int)blocks, kL0Threads, 0, s>>>(
+        (const float4*)x, (const float4*)y, out, n, (int)d4, lanes_log2, tol);
+    return cudaGetLastError();
+  }
+  const int64_t blocks = (n + kL0Warps - 1) / kL0Warps;
+  if (blocks > INT32_MAX || d4 > INT32_MAX) return cudaErrorInvalidValue;
+  if (vec && d4 > 32) {
+    l0_rows_wide_kernel<kHasY><<<(unsigned int)blocks, kL0Threads, 0, s>>>(
+        (const float4*)x, (const float4*)y, out, n, (int)d4, tol);
+  } else {
+    l0_rows_scalar_kernel<kHasY><<<(unsigned int)blocks, kL0Threads, 0, s>>>(
+        x, y, out, n, d, tol);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // y may be null: the count is then against zero.
 extern "C" int repro_l0_rows(const float* x, const float* y, float* out,
                              int64_t n, int64_t d, float tol, void* stream) {
   if (n <= 0) return 0;
-  const unsigned int blocks = (unsigned int)((n + kWarps - 1) / kWarps);
   cudaStream_t s = (cudaStream_t)stream;
-  if (y) {
-    l0_rows_kernel<true><<<blocks, kThreads, 0, s>>>(x, y, out, n, d, tol);
-  } else {
-    l0_rows_kernel<false><<<blocks, kThreads, 0, s>>>(x, y, out, n, d, tol);
-  }
-  return (int)cudaGetLastError();
+  return (int)(y ? launch_l0_rows<true>(x, y, out, n, d, tol, s)
+                 : launch_l0_rows<false>(x, y, out, n, d, tol, s));
 }
 
 // x is (nb, b, d) row-major, cut into `blocks` blocks by the wrapper's

@@ -51,7 +51,7 @@ def train_loop(cfg, *, steps=50, batch_size=8, seq_len=64, lr=1e-3,
     ``params`` (a ``CausalLM``) replaces the seeded initial weights; the
     train state copies it and leaves it as it was."""
     dev = resolve_device(device)
-    key = key if key is not None else R.PRNGKey(0)
+    key = key if key is not None else R.PRNGKey(0, device=dev)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(0)
         params = M.init_params(cfg, gen, dev)

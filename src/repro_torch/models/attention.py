@@ -36,6 +36,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DEFAULT_DEVICE, resolve_device_or_meta
 from repro_torch.distributed import local as DL
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.models.layers import _dense_init, apply_mrope, apply_rope
@@ -95,8 +96,9 @@ def init_cross_attn(gen, cfg: ArchConfig, dtype, device):
 # Masks + core attention math
 # ---------------------------------------------------------------------------
 
-def causal_mask(q_len, kv_len, q_offset=0, window=0, device=None):
+def causal_mask(q_len, kv_len, q_offset=0, window=0, device=DEFAULT_DEVICE):
     """(q_len, kv_len) bool mask.  window=0 -> plain causal."""
+    device = resolve_device_or_meta(device)
     qi = torch.arange(q_len, device=device)[:, None] + q_offset
     kj = torch.arange(kv_len, device=device)[None, :]
     m = kj <= qi
@@ -237,7 +239,8 @@ class KVCache:
 
 
 def init_kv_cache(cfg: ArchConfig, batch, max_len, dtype, window=0,
-                  device="cpu"):
+                  device=DEFAULT_DEVICE):
+    device = resolve_device_or_meta(device)
     T = window if window else max_len
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     return KVCache(
@@ -284,7 +287,9 @@ class MLACache:
     index: int = 0          # next write slot
 
 
-def init_mla_cache(cfg: ArchConfig, batch, max_len, dtype, device="cpu"):
+def init_mla_cache(cfg: ArchConfig, batch, max_len, dtype,
+                   device=DEFAULT_DEVICE):
+    device = resolve_device_or_meta(device)
     m = cfg.mla
     return MLACache(
         c_kv=torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,

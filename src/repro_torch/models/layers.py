@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device_or_meta
 from repro_torch.distributed import local as DL
 from repro_torch.kernels import rmsnorm as krms
 
@@ -122,8 +123,9 @@ def apply_mlp(p, x, kind):
 # Rotary embeddings
 # ---------------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float, device=None):
+def rope_freqs(head_dim: int, theta: float, device=DEFAULT_DEVICE):
     """Half-dim inverse frequencies, float32."""
+    device = resolve_device_or_meta(device)
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
     return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,

@@ -72,7 +72,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.device import DEFAULT_DEVICE, resolve_device_or_meta
 from repro_torch.distributed import local as DL
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
@@ -247,11 +247,9 @@ def init_params(cfg: ArchConfig, generator=None,
     """Random weights drawn from ``generator`` (default: a generator on
     ``device`` seeded with 0).  ``device="meta"`` builds the shapes only
     (for parameter counts)."""
-    dev = torch.device(device)
-    if dev.type != "meta":
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+    dev = resolve_device_or_meta(device)
+    if dev.type != "meta" and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
     return CausalLM(cfg, generator, dev)
 
 
@@ -621,9 +619,7 @@ def init_decode_state(cfg: ArchConfig, batch, max_len, dtype=None,
     and rope key for an MLA layer, a constant-size state
     for an SSM layer; and the next absolute position.  ``device="meta"``
     builds the shapes only."""
-    dev = torch.device(device)
-    if dev.type != "meta":
-        dev = resolve_device(device)
+    dev = resolve_device_or_meta(device)
     dtype = dtype or getattr(torch, cfg.dtype)
     caches = [_init_block_cache(cfg, spec, batch, max_len, dtype, dev)
               for spec in layer_plan(cfg)]

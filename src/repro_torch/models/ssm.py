@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DEFAULT_DEVICE, resolve_device_or_meta
 from repro_torch.models.layers import _dense_init, apply_rmsnorm
 
 HEAD_DIM = 64
@@ -179,7 +180,8 @@ class Mamba2State:
     ssm: torch.Tensor        # (B, H, hd, N) f32
 
 
-def init_mamba2_state(cfg: ArchConfig, batch, dtype, device="cpu"):
+def init_mamba2_state(cfg: ArchConfig, batch, dtype, device=DEFAULT_DEVICE):
+    device = resolve_device_or_meta(device)
     s, inner, H, hd, N = _mamba_dims(cfg)
     conv_ch = inner + 2 * N
     return Mamba2State(
@@ -326,9 +328,9 @@ class MLSTMState:
     n: torch.Tensor          # (B,H,hd) f32
 
 
-def init_mlstm_state(cfg: ArchConfig, batch, dtype, device="cpu"):
+def init_mlstm_state(cfg: ArchConfig, batch, dtype, device=DEFAULT_DEVICE):
     inner, H, hd = _mlstm_dims(cfg)
-    f32 = dict(dtype=torch.float32, device=device)
+    f32 = dict(dtype=torch.float32, device=resolve_device_or_meta(device))
     return MLSTMState(C=torch.zeros((batch, H, hd, hd), **f32),
                       n=torch.zeros((batch, H, hd), **f32))
 
@@ -446,9 +448,10 @@ class SLSTMState:
     h: torch.Tensor
 
 
-def init_slstm_state(cfg: ArchConfig, batch, dtype, device="cpu"):
+def init_slstm_state(cfg: ArchConfig, batch, dtype, device=DEFAULT_DEVICE):
     d, H, hd = _slstm_dims(cfg)
-    z = torch.zeros((batch, H, hd), dtype=torch.float32, device=device)
+    z = torch.zeros((batch, H, hd), dtype=torch.float32,
+                    device=resolve_device_or_meta(device))
     return SLSTMState(c=z, n=z.clone(), m=torch.full_like(z, -1e9),
                       h=z.clone())
 

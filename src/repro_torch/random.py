@@ -27,6 +27,8 @@ import math
 
 import torch
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -51,13 +53,14 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
+def PRNGKey(seed: int, device=DEFAULT_DEVICE) -> torch.Tensor:
     """Key for a non-negative integer seed below 2**31 (``jax.random.
     PRNGKey`` with 64-bit types off: the high word is zero)."""
     seed = int(seed)
     if not 0 <= seed < 2 ** 31:
         raise ValueError(f"seed {seed} must be in [0, 2**31)")
-    return torch.tensor([0, seed], dtype=torch.int64, device=device)
+    return torch.tensor([0, seed], dtype=torch.int64,
+                        device=resolve_device(device))
 
 
 def _words(key):

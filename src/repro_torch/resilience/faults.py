@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch import random as R
+from repro_torch.device import DEFAULT_DEVICE
 
 #: corruption models a FaultSpec may name
 CORRUPT_KINDS = ("sign_flip", "quantize")
@@ -100,7 +101,7 @@ def resolve(fault: FaultLike) -> Optional[FaultSpec]:
 
 
 def make_stream(spec: FaultSpec, shape: Tuple[int, ...],
-                device="cpu") -> Dict[str, torch.Tensor]:
+                device=DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
     """The per-update event indicators of a whole run: ``{"drop", "dup",
     "straggle", "corrupt"}``, float32 0/1 tensors of ``shape`` on
     ``device``, each ``uniform(fold_in(PRNGKey(seed), tag)) < rate`` (a

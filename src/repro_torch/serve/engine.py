@@ -29,7 +29,8 @@ import torch
 from repro_torch import interop
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.device import (DEFAULT_DEVICE, resolve_device,
+                                resolve_device_or_meta)
 from repro_torch.distributed import local as DL
 from repro_torch.distributed import rules as RU
 from repro_torch.distributed.mesh import check_model_mesh
@@ -305,9 +306,7 @@ def init_serve_state(cfg: ArchConfig, batch, max_len, dtype=None,
     """{"decode": the decode state} and, for an encoder-decoder or when
     ``with_encoder``, a zero ``enc_out`` (batch, encoder_seq, d_model).
     ``device="meta"`` builds the shapes only."""
-    dev = torch.device(device)
-    if dev.type != "meta":
-        dev = resolve_device(device)
+    dev = resolve_device_or_meta(device)
     state = {"decode": M.init_decode_state(cfg, batch, max_len, dtype, dev)}
     if with_encoder or cfg.encoder_layers:
         state["enc_out"] = torch.zeros(

@@ -31,7 +31,7 @@ from repro_torch.train import steps as S
 
 def trainable(cfg, rparams):
     """The reference's pytree as a port model whose leaves need grads."""
-    lm = interop.lm_params(cfg, rparams)
+    lm = interop.lm_params(cfg, rparams, device="cpu")
     for p in lm.parameters():
         p.requires_grad_(True)
     return lm
@@ -85,7 +85,8 @@ def check_train_loop(arch, **kw):
     rparams = jax.tree.map(np.asarray, RM.init_params(jax.random.PRNGKey(0),
                                                       rcfg))
     params, got, step_ms = train_loop(
-        cfg, params=interop.lm_params(cfg, rparams), device="cpu", **kw)
+        cfg, params=interop.lm_params(cfg, rparams, device="cpu"),
+        device="cpu", **kw)
     assert isinstance(params, M.CausalLM) and len(step_ms) == kw["steps"]
     assert all(np.isfinite(got))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)

@@ -26,6 +26,8 @@ from repro_torch.core import advisor as TA
 from repro_torch.serve.engine import SlotDriver, mask_tree
 from repro_torch.service.batcher import ProbeBatcher
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RNG = np.random.default_rng(7)
 STRATEGIES = ("hogwild", "sync", "dadm", "momentum", "local_sgd", "svrg")
 

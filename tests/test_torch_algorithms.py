@@ -22,6 +22,8 @@ from repro_torch.core.algorithms import base as TB
 from repro_torch.core.algorithms import ecd_psgd as TE
 from repro_torch.experiments import engine as TEng
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 MS = [1, 2, 4, 8]
 CASES = {
     "minibatch": ("higgs_like", {"n": 400, "d": 12}, {}, 120, 1e-5),
@@ -39,7 +41,7 @@ def _ref_split(gen, kw):
 
 
 def _port_split(tr, te):
-    return interop.split((tr.X, tr.y), (te.X, te.y))
+    return interop.split((tr.X, tr.y), (te.X, te.y), device="cpu")
 
 
 @pytest.mark.parametrize("alg", sorted(CASES))
@@ -93,9 +95,10 @@ def test_interop_draws_equal_port_draws(alg):
     _, _, akw, _, _ = CASES[alg]
     key = jax.random.PRNGKey(3)
     ref = JB.get_algorithm(alg)(**akw).make_draws(key, 500, 30, 12)
-    carried = interop.draws(alg, jax.tree.map(np.asarray, ref), d=28)
-    own = TB.get_algorithm(alg)(**akw).make_draws(R.PRNGKey(3), 500, 30,
-                                                  12, 28)
+    carried = interop.draws(alg, jax.tree.map(np.asarray, ref), d=28,
+                            device="cpu")
+    own = TB.get_algorithm(alg)(**akw).make_draws(
+        R.PRNGKey(3, device="cpu"), 500, 30, 12, 28)
     if isinstance(own, dict):
         assert set(own) == set(carried)
         for k in own:

@@ -28,6 +28,8 @@ from repro_torch.experiments import registry as TR
 from repro_torch.experiments import spec as TS
 from repro_torch.resilience import faults as TFault
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 MS = [1, 2, 3, 4, 8]
 FAULT = {"straggle_rate": 0.3, "straggle_rounds": 3, "corrupt_rate": 0.15,
          "corrupt_kind": "sign_flip", "drop_rate": 0.1,
@@ -58,7 +60,7 @@ def split():
     ds = JS.make_character_knob(key, n=300, d=12, variance=1.0,
                                 density=0.5, duplication=0.25)
     tr, te = ds.split(key=key)
-    return tr, te, interop.split((tr.X, tr.y), (te.X, te.y))
+    return tr, te, interop.split((tr.X, tr.y), (te.X, te.y), device="cpu")
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -143,8 +145,8 @@ def test_fault_schedule_is_shared_across_seeds(alg, shape):
     """The stream comes from the fault seed, not the sweep key, and is the
     reference's bit for bit."""
     t_alg = TB.get_algorithm(alg)(fault=FAULT)
-    d1 = t_alg.make_draws(R.PRNGKey(0), 100, 50, 8, 12)
-    d2 = t_alg.make_draws(R.PRNGKey(1), 100, 50, 8, 12)
+    d1 = t_alg.make_draws(R.PRNGKey(0, device="cpu"), 100, 50, 8, 12)
+    d2 = t_alg.make_draws(R.PRNGKey(1, device="cpu"), 100, 50, 8, 12)
     ref = JFault.make_stream(JFault.resolve(FAULT), shape)
     for k in ("drop", "dup", "straggle", "corrupt"):
         assert torch.equal(d1[k], d2[k])
@@ -197,9 +199,10 @@ def test_interop_draws_equal_port_draws(case):
     alg = _alg(case)
     ref = JB.get_algorithm(alg)(**CASES[case]).make_draws(
         jax.random.PRNGKey(3), 500, 30, 12)
-    carried = interop.draws(alg, jax.tree.map(np.asarray, ref), d=12)
+    carried = interop.draws(alg, jax.tree.map(np.asarray, ref), d=12,
+                            device="cpu")
     own = TB.get_algorithm(alg)(**CASES[case]).make_draws(
-        R.PRNGKey(3), 500, 30, 12, 12)
+        R.PRNGKey(3, device="cpu"), 500, 30, 12, 12)
     if isinstance(own, dict):
         assert set(own) == set(carried)
         for k in own:

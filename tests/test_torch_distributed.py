@@ -39,6 +39,8 @@ from repro_torch.experiments.spec import (EXECUTION_ONLY_FIELDS,
 from repro_torch.telemetry import metrics
 from repro_torch.telemetry.recorder import RECORDER
 
+from _torch_threads import capped_env, one_torch_thread  # noqa: F401
+
 REPO = os.path.join(os.path.dirname(__file__), "..")
 CPU4 = from_devices(["cpu"] * 4)
 
@@ -221,8 +223,9 @@ def test_cache_hit_served_without_resolving_the_mesh(tmp_path, monkeypatch):
 
 @pytest.fixture(scope="module")
 def split():
-    ds = synth.get_generator("higgs_like")(R.PRNGKey(0), n=400, d=16)
-    return ds.split(key=R.PRNGKey(0))
+    ds = synth.get_generator("higgs_like")(R.PRNGKey(0, device="cpu"),
+                                           n=400, d=16)
+    return ds.split(key=R.PRNGKey(0, device="cpu"))
 
 
 @pytest.mark.parametrize("algo,n_seeds,iters,kw,tol", [
@@ -329,9 +332,8 @@ def reference_races(split, tmp_path_factory):
     path = tmp_path_factory.mktemp("race") / "data.npz"
     np.savez(path, X=tr.X.numpy(), y=tr.y.numpy(), Xte=te.X.numpy(),
              yte=te.y.numpy())
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(REPO, "src"))
+    env = capped_env(XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                     JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run(
         [sys.executable, "-c", REF_RACE, str(path), json.dumps(RACES),
          json.dumps(SWEEP)], env=env, capture_output=True, text=True,

@@ -26,6 +26,8 @@ from repro_torch.core.numerics import fma
 from repro_torch.experiments import engine as TEng
 from repro_torch.kernels import quantize as kq
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _inline_tail(grads, x_half, xs, ys, u, gamma, t, bits):
     """The ECD-PSGD step after the gradient, as the step wrote it before
@@ -91,7 +93,7 @@ class _InlineEcdPsgd(TE.EcdPsgd):
 def _split(gen, kw):
     key = jax.random.PRNGKey(0)
     tr, te = JS.get_generator(gen)(key, **kw).split(key=key)
-    return tr, te, interop.split((tr.X, tr.y), (te.X, te.y))
+    return tr, te, interop.split((tr.X, tr.y), (te.X, te.y), device="cpu")
 
 
 @pytest.mark.parametrize("bits", [4, 8, 16])

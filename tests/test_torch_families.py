@@ -30,6 +30,8 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.models import model as M
 from repro_torch.serve.engine import greedy_generate, make_prefill_step
 
+from _torch_threads import capped_env, one_torch_thread  # noqa: F401
+
 ARCHS = ["xlstm-350m", "zamba2-1.2b", "arctic-480b"]
 IMPLS = {"kernel": "pallas", "reference": "reference"}
 SEQ = 40                # off the reduced SSM chunk of 32
@@ -50,7 +52,7 @@ def _setup(arch, capacity=None):
     cfg = _cfg(get_arch, arch, capacity)
     rparams = jax.tree.map(np.asarray, RM.init_params(jax.random.PRNGKey(0),
                                                       rcfg))
-    params = interop.lm_params(cfg, rparams)
+    params = interop.lm_params(cfg, rparams, device="cpu")
     rng = np.random.default_rng(len(arch))
     tokens = rng.integers(0, cfg.vocab_size, (2, SEQ), dtype=np.int32)
     return rcfg, cfg, rparams, params, tokens
@@ -65,7 +67,10 @@ def _ref_forward(arch, impl):
     return np.asarray(logits), float(aux["load_balance_loss"])
 
 
+@functools.lru_cache(maxsize=None)
 def _port_decode(arch, capacity=None):
+    """The port's decode logits at every position and its final state,
+    computed once per (arch, capacity) for the module's tests."""
     _, cfg, _, params, tokens = _setup(arch, capacity)
     state = M.init_decode_state(cfg, tokens.shape[0], 64, device="cpu")
     out = []
@@ -186,14 +191,14 @@ def test_lm_tree_inverts_lm_params(arch):
     assert len(got) == len(want)
     for (_, g), (_, w) in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
-    again = interop.lm_tree(interop.lm_params(cfg, tree))
+    again = interop.lm_tree(interop.lm_params(cfg, tree, device="cpu"))
     for (_, g), (_, w) in zip(T.flatten_with_path(again), got):
         assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_launcher_runs_on_cpu(arch):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = capped_env(PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
          "--device", "cpu", "--requests", "2", "--prompt-len", "8",

@@ -11,6 +11,7 @@ Runs are held by their losses, within 1e-5 relative
 import pytest
 
 from _torch_train_parity import check_train_loop
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("strategy", ["sync", "stale"])

@@ -29,6 +29,7 @@ from repro_torch.models import model as M
 from repro_torch.train import steps as S
 
 from _torch_train_parity import check_loss_and_grads
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["xlstm-350m", "zamba2-1.2b", "arctic-480b"]
 SEQ = 40                # off the reduced SSM chunk of 32
@@ -95,8 +96,8 @@ def test_gossip_step_runs_on_zamba2():
     batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (4, 32),
                                           dtype=np.int32))
              for k in ("tokens", "labels")}
-    state = S.init_gossip_state(cfg, 2,
-                                params=interop.lm_params(cfg, rparams))
+    state = S.init_gossip_state(
+        cfg, 2, params=interop.lm_params(cfg, rparams, device="cpu"))
     before = T.tree_map(torch.clone, state["params"])
     with torch.no_grad():
         want = torch.stack([

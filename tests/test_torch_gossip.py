@@ -30,6 +30,8 @@ from repro_torch import tree as T
 from repro_torch.configs.registry import get_arch
 from repro_torch.train import steps as S
 
+from _torch_threads import capped_env, one_torch_thread  # noqa: F401
+
 REPO = os.path.join(os.path.dirname(__file__), "..")
 STEPS, LR, B, SEQ = 8, 2e-3, 8, 32
 
@@ -82,10 +84,8 @@ def reference(tmp_path_factory):
     batch = {k: rng.integers(0, cfg.vocab_size, (B, SEQ), dtype=np.int32)
              for k in ("tokens", "labels")}
     np.savez(tmp / "batch.npz", **batch)
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.path.join(REPO, "src"))
+    env = capped_env(XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                     JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run(
         [sys.executable, "-c", REF_SCRIPT, str(tmp / "state.npz"),
          str(tmp / "batch.npz")], env=env, capture_output=True, text=True,
@@ -126,7 +126,8 @@ def port(reference):
     @functools.lru_cache(maxsize=None)
     def run(R):
         init = _unflatten(_leaves(arrays, R, "step0", "params"))
-        lm = interop.lm_params(cfg, T.tree_map(lambda x: x[0], init))
+        lm = interop.lm_params(cfg, T.tree_map(lambda x: x[0], init),
+                               device="cpu")
         state = S.init_gossip_state(cfg, R, params=lm, device="cpu")
         step = S.make_gossip_step(cfg, replicas=R, lr=LR, compress_bits=8)
         losses, after_one = [], None
@@ -149,7 +150,7 @@ def test_initial_state_layout(reference, port, R):
     want = _leaves(arrays, R, "step0", "params")
     cfg = get_arch("gemma3-1b").reduced()
     init = _unflatten(want)
-    lm = interop.lm_params(cfg, T.tree_map(lambda x: x[0], init))
+    lm = interop.lm_params(cfg, T.tree_map(lambda x: x[0], init), device="cpu")
     state = S.init_gossip_state(cfg, R, params=lm, device="cpu")
     got = T.flatten_with_path(state["params"])
     assert [p for p, _ in got] == list(want)

@@ -16,6 +16,8 @@ from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import quantize as kq
 from repro_torch.kernels import rmsnorm as krms
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _pair(n, d, seed):
     rng = np.random.default_rng(seed)
@@ -188,7 +190,7 @@ def test_quantize_plain_matches_pallas(n, d, bits):
     x = (rng.standard_normal((n, d)) * 3).astype(np.float32)
     key = jax.random.PRNGKey(n * d + bits)
     q_ref, s_ref = ops.quantize_stochastic(x, key, bits=bits)
-    u = R.uniform(R.PRNGKey(n * d + bits), (n, d)).reshape(1, -1)
+    u = R.uniform(R.PRNGKey(n * d + bits, device="cpu"), (n, d)).reshape(1, -1)
     scale = torch.tensor([float(s_ref)], dtype=torch.float32)
     q = kq.quantize_rows_plain(torch.tensor(x).reshape(1, -1), u, scale,
                                bits)
@@ -209,7 +211,8 @@ def test_quantize_stochastic_matches_reference(bits):
     key = jax.random.PRNGKey(bits)
     q_ref, s_ref = jc.quantize_stochastic(x, key, bits=bits)
     q, s = compression.quantize_stochastic(
-        torch.tensor(x), R.uniform(R.PRNGKey(bits), (40, 28)), bits=bits)
+        torch.tensor(x), R.uniform(R.PRNGKey(bits, device="cpu"), (40, 28)),
+        bits=bits)
     assert float(s_ref) == float(s)
     np.testing.assert_array_equal(np.asarray(q_ref), q.numpy())
     np.testing.assert_array_equal(np.asarray(jc.dequantize(q_ref, s_ref)),
@@ -224,7 +227,7 @@ def test_row_scales_match_per_row_reference():
     z = (rng.standard_normal((24, 28)) * np.arange(1, 25)[:, None]
          ).astype(np.float32)
     keys = jax.random.split(jax.random.PRNGKey(4), 24)
-    u = R.uniform(R.split(R.PRNGKey(4), 24), (28,))
+    u = R.uniform(R.split(R.PRNGKey(4, device="cpu"), 24), (28,))
     q, s = compression.quantize_rows_stochastic(torch.tensor(z), u)
     cz = compression.dequantize_rows(q, s)
     for i in range(24):

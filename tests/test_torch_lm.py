@@ -10,13 +10,15 @@ from repro.data import lm as RL
 from repro_torch import random as R
 from repro_torch.data import lm as L
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("seed", [0, 1, 2 ** 31 - 2])
 def test_hmm_stream_bit_identical(seed):
     want = list(RL.hmm_stream(jax.random.PRNGKey(seed),
                               RL.LMConfig(512, 24, 4), 3))
-    got = list(L.hmm_stream(R.PRNGKey(seed), L.LMConfig(512, 24, 4), 3,
-                            device="cpu"))
+    got = list(L.hmm_stream(R.PRNGKey(seed, device="cpu"),
+                            L.LMConfig(512, 24, 4), 3, device="cpu"))
     assert len(got) == 3
     for a, b in zip(want, got):
         for k in ("tokens", "labels"):
@@ -28,8 +30,9 @@ def test_hmm_stream_vocab_band_clamp():
     """A vocabulary narrower than two bands, as the reference clamps it."""
     want = next(RL.hmm_stream(jax.random.PRNGKey(5),
                               RL.LMConfig(40, 8, 3, n_states=8), 1))
-    got = next(L.hmm_stream(R.PRNGKey(5), L.LMConfig(40, 8, 3, n_states=8),
-                            1, device="cpu"))
+    got = next(L.hmm_stream(R.PRNGKey(5, device="cpu"),
+                            L.LMConfig(40, 8, 3, n_states=8), 1,
+                            device="cpu"))
     np.testing.assert_array_equal(got["tokens"].numpy(),
                                   np.asarray(want["tokens"]))
 

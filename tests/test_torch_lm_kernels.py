@@ -15,6 +15,8 @@ from repro.kernels import ops, ref
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import rmsnorm as krms
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

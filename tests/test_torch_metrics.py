@@ -12,6 +12,8 @@ from repro.data import synth as JS
 from repro_torch import interop
 from repro_torch.core import metrics as TM
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 _EXACT = ("n", "d", "diversity", "diversity_ratio")
 
 
@@ -34,7 +36,7 @@ def datasets():
 def test_summarize_matches_reference(datasets, name):
     X, y = datasets[name]
     ref = JM.summarize(X)
-    got = TM.summarize(interop.dataset(X, y).X)
+    got = TM.summarize(interop.dataset(X, y, device="cpu").X)
     assert set(ref) == set(got)
     for k, v in ref.items():
         if k in _EXACT:

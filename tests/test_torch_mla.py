@@ -34,6 +34,7 @@ from repro_torch.models import model as M
 from repro_torch.serve.engine import greedy_generate
 
 from _torch_train_parity import check_loss_and_grads
+from _torch_threads import capped_env, one_torch_thread  # noqa: F401
 
 ARCH = "deepseek-v2-236b"
 IMPLS = {"kernel": "pallas", "reference": "reference"}
@@ -54,7 +55,7 @@ def _setup(capacity=None):
     rcfg, cfg = _cfg(ref_get_arch, capacity), _cfg(get_arch, capacity)
     rparams = jax.tree.map(np.asarray, jax.jit(
         lambda key: RM.init_params(key, rcfg))(jax.random.PRNGKey(0)))
-    params = interop.lm_params(cfg, rparams)
+    params = interop.lm_params(cfg, rparams, device="cpu")
     rng = np.random.default_rng(5)
     tokens = rng.integers(0, cfg.vocab_size, (2, SEQ), dtype=np.int32)
     return rcfg, cfg, rparams, params, tokens
@@ -88,7 +89,7 @@ def test_mla_decode_matches_reference():
     caches within 1e-5; the port writes its cache in place."""
     rcfg, cfg, rp, p, x = _mla_layer()
     rcache = RA.init_mla_cache(rcfg, 2, SEQ + 4, jnp.float32)
-    cache = A.init_mla_cache(cfg, 2, SEQ + 4, torch.float32)
+    cache = A.init_mla_cache(cfg, 2, SEQ + 4, torch.float32, device="cpu")
     assert cache.c_kv.shape == (2, SEQ + 4, cfg.mla.kv_lora_rank)
     assert cache.k_rope.shape == (2, SEQ + 4, cfg.mla.qk_rope_head_dim)
     step = jax.jit(lambda c, xt, t: RA.mla_decode(rp, rcfg, xt, c, t))
@@ -208,7 +209,7 @@ def test_lm_tree_inverts_lm_params():
     assert len(got) == len(want)
     for (_, g), (_, w) in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
-    again = interop.lm_tree(interop.lm_params(cfg, tree))
+    again = interop.lm_tree(interop.lm_params(cfg, tree, device="cpu"))
     for (_, g), (_, w) in zip(T.flatten_with_path(again), got):
         assert torch.equal(g, w)
 
@@ -233,7 +234,7 @@ def test_full_param_count_and_plan_match_reference():
 
 
 def test_serve_launcher_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = capped_env(PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
          "--device", "cpu", "--requests", "2", "--prompt-len", "8",

@@ -19,6 +19,8 @@ from repro_torch import interop
 from repro_torch.configs.registry import get_arch
 from repro_torch.models import model as M
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ARCHS = ["gemma3-1b", "qwen2.5-3b", "phi3-mini-3.8b", "qwen1.5-110b"]
 # gemma3's reduced window is 64: 72 tokens take its ring buffer round
 SEQ = {"gemma3-1b": 72, "qwen2.5-3b": 12, "phi3-mini-3.8b": 12,
@@ -31,7 +33,8 @@ def _setup(arch):
     rcfg = ref_get_arch(arch).reduced()
     cfg = get_arch(arch).reduced()
     rparams = RM.init_params(jax.random.PRNGKey(0), rcfg)
-    params = interop.lm_params(cfg, jax.tree.map(np.asarray, rparams))
+    params = interop.lm_params(cfg, jax.tree.map(np.asarray, rparams),
+                               device="cpu")
     rng = np.random.default_rng(len(arch))
     tokens = rng.integers(0, cfg.vocab_size, (2, SEQ[arch]), dtype=np.int32)
     return rcfg, cfg, rparams, params, tokens

@@ -26,6 +26,8 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MoE
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 AUX_TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -15,6 +15,8 @@ from repro import optim as RO
 from repro_torch import optim as O
 from repro_torch import tree as T
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 SHAPES = {"w": (6, 5), "b": (5,), "deep": {"k": (3, 4, 2), "s": ()},
           "layers": [(4, 4), (7,)]}
 OPTS = {

@@ -9,6 +9,8 @@ import torch
 
 from repro_torch import random as R
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _same(ref, got):
     ref = np.asarray(ref)
@@ -21,7 +23,7 @@ def _same(ref, got):
 
 @pytest.mark.parametrize("seed", [0, 1, 7, 123456, 2 ** 31 - 1])
 def test_prngkey_split_fold_in(seed):
-    jk, tk = jax.random.PRNGKey(seed), R.PRNGKey(seed)
+    jk, tk = jax.random.PRNGKey(seed), R.PRNGKey(seed, device="cpu")
     _same(jk, tk)
     _same(jax.random.split(jk), R.split(tk))
     _same(jax.random.split(jk, 24), R.split(tk, 24))
@@ -38,14 +40,14 @@ def test_prngkey_split_fold_in(seed):
 def test_uniform(shape, lo, hi):
     _same(jax.random.uniform(jax.random.PRNGKey(3), shape,
                              minval=lo, maxval=hi),
-          R.uniform(R.PRNGKey(3), shape, lo, hi))
+          R.uniform(R.PRNGKey(3, device="cpu"), shape, lo, hi))
 
 
 @pytest.mark.parametrize("p,shape", [(0.7, (4000, 400)),
                                      (0.05, (1000, 300))])
 def test_bernoulli(p, shape):
     _same(jax.random.bernoulli(jax.random.PRNGKey(5), p, shape),
-          R.bernoulli(R.PRNGKey(5), p, shape))
+          R.bernoulli(R.PRNGKey(5, device="cpu"), p, shape))
 
 
 @pytest.mark.parametrize("shape,n", [
@@ -57,7 +59,7 @@ def test_bernoulli(p, shape):
 ])
 def test_randint(shape, n):
     jk = jax.random.split(jax.random.PRNGKey(11))[0]
-    tk = R.split(R.PRNGKey(11))[0]
+    tk = R.split(R.PRNGKey(11, device="cpu"))[0]
     _same(jax.random.randint(jk, shape, 0, n), R.randint(tk, shape, 0, n))
 
 
@@ -65,7 +67,7 @@ def test_randint(shape, n):
 def test_permutation(n):
     # Dataset.split's shuffle (spec.py:311 -> synth.py:79)
     _same(jax.random.permutation(jax.random.PRNGKey(0), n),
-          R.permutation(R.PRNGKey(0), n))
+          R.permutation(R.PRNGKey(0, device="cpu"), n))
 
 
 def test_ecd_quantization_noise():
@@ -77,7 +79,7 @@ def test_ecd_quantization_noise():
         jax.random.fold_in(k_q, t), m_top))(jnp.arange(iters))
     noise = jax.vmap(jax.vmap(
         lambda k: jax.random.uniform(k, (d,), jnp.float32)))(wkeys)
-    tk_q = R.split(R.PRNGKey(0))[1]
+    tk_q = R.split(R.PRNGKey(0, device="cpu"))[1]
     twkeys = R.split(R.fold_in(tk_q, torch.arange(iters)), m_top)
     _same(wkeys, twkeys)
     _same(noise, R.uniform(twkeys, (d,)))
@@ -86,14 +88,14 @@ def test_ecd_quantization_noise():
 def test_seed_axis_keys():
     """The engine's seed axis: seed s draws with fold_in(key, s)
     (engine.py:265)."""
-    jk, tk = jax.random.PRNGKey(0), R.PRNGKey(0)
+    jk, tk = jax.random.PRNGKey(0), R.PRNGKey(0, device="cpu")
     for s in range(1, 5):
         _same(jax.random.fold_in(jk, s), R.fold_in(tk, s))
 
 
 def test_keys_are_values():
     """No global state: the same key always draws the same numbers."""
-    k = R.PRNGKey(9)
+    k = R.PRNGKey(9, device="cpu")
     a, b = R.uniform(k, (16,)), R.uniform(k, (16,))
     assert torch.equal(a, b)
     assert not torch.equal(a, R.uniform(R.split(k)[0], (16,)))

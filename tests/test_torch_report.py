@@ -24,6 +24,8 @@ from repro_torch.analysis import report, trajectory
 from repro_torch.experiments import cache as artifact_cache
 from repro_torch.telemetry import trace
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 ARGS = ["--quick", "--iters", "40", "--n", "120", "--seeds", "2"]
 ECD_TOL = 2e-2

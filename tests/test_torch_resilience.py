@@ -25,6 +25,8 @@ from repro_torch.experiments.spec import (DatasetSpec, EpsilonSpec, JobSpec,
 from repro_torch.resilience import journal
 from repro_torch.telemetry import RECORDER
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _tiny_spec(name, **kw):
     kw.setdefault("ms", (1, 2))

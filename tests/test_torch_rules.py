@@ -32,6 +32,8 @@ from repro_torch.launch import comm_stats as C
 from repro_torch.launch import specs as S
 from repro_torch.train.steps import train_state_specs
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 class _FakeMesh:
     def __init__(self, shape, names):

@@ -21,6 +21,8 @@ from repro_torch.models.attention import gqa_decode, init_gqa, init_kv_cache
 from repro_torch.serve.engine import (greedy_generate, init_serve_state,
                                       make_prefill_step, make_serve_step)
 
+from _torch_threads import capped_env, one_torch_thread  # noqa: F401
+
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 
 
@@ -29,7 +31,7 @@ def _pair(arch):
     cfg = get_arch(arch).reduced()
     rparams = RM.init_params(jax.random.PRNGKey(0), rcfg)
     return rcfg, cfg, rparams, interop.lm_params(
-        cfg, jax.tree.map(np.asarray, rparams))
+        cfg, jax.tree.map(np.asarray, rparams), device="cpu")
 
 
 def test_greedy_generate_matches_reference():
@@ -78,7 +80,7 @@ def test_sliding_window_cache_is_ring_buffer():
     gen = torch.Generator().manual_seed(0)
     p = init_gqa(gen, cfg, torch.float32, "cpu")
     cache = init_kv_cache(cfg, batch=1, max_len=64, dtype=torch.float32,
-                          window=window)
+                          window=window, device="cpu")
     assert cache.k.shape[1] == window
     x = torch.randn((1, 1, cfg.d_model), generator=gen)
     for t in range(window + 3):
@@ -89,7 +91,7 @@ def test_sliding_window_cache_is_ring_buffer():
 
 
 def test_serve_launcher_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = capped_env(PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--requests", "2", "--prompt-len", "8", "--gen", "8"],

@@ -26,6 +26,8 @@ from repro_torch.service.http import ServiceServer
 from repro_torch.telemetry import trace
 from repro_torch.telemetry.metrics import parse_prometheus_text
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RNG = np.random.default_rng(11)
 STRATEGIES = ("hogwild", "sync", "dadm", "momentum", "local_sgd", "svrg")
 SMALL = dict(sweep_iters=50, sweep_eval_every=10, n_slots=4)

@@ -41,6 +41,8 @@ import tempfile
 
 import pytest
 
+from _torch_threads import capped_env, one_torch_thread  # noqa: F401
+
 HERE = os.path.dirname(__file__)
 WORKER = os.path.join(HERE, "_torch_shard_worker.py")
 ARCH_IDS = ["qwen1.5-110b", "gemma3-1b", "arctic-480b", "qwen2-vl-72b",
@@ -61,7 +63,7 @@ def _reports():
     """The children's reports: {"mesh": {arch: ...}, "dryrun": {...}}."""
     tmp = tempfile.mkdtemp(prefix="torch_shard_")
     outs = {k: os.path.join(tmp, f"{k}.json") for k in JOBS}
-    env = dict(os.environ, PYTHONWARNINGS="ignore")
+    env = capped_env(PYTHONWARNINGS="ignore")
     procs = {k: subprocess.Popen([sys.executable, WORKER, JOBS[k][0],
                                   outs[k], *JOBS[k][1:]],
                                  stdout=subprocess.PIPE,

@@ -14,6 +14,8 @@ from repro_torch.experiments import registry as TR
 from repro_torch.experiments import run as TRun_cli
 from repro_torch.experiments import spec as TS
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 OVERRIDES = [{}, {"iters": 40}, {"n": 256}, {"seeds": 2},
              {"iters": 60, "n": 300, "seeds": 3}]
 

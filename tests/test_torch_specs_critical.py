@@ -9,6 +9,7 @@ curves, equal costs and m_max); the faulted jobs of fault_tolerance at
 import pytest
 
 from _torch_sweep_parity import check_spec
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(quick=True, iters=40, n=256, seeds=2)
 

@@ -7,6 +7,7 @@ curves, ECD-PSGD 2e-2, equal costs and m_max)."""
 import pytest
 
 from _torch_sweep_parity import check_spec
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(quick=True, iters=40, n=256, seeds=2)
 

@@ -19,6 +19,8 @@ from repro.models import ssm as RS
 from repro_torch.configs.registry import get_arch
 from repro_torch.models import ssm as S
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCH = {"mamba2": "zamba2-1.2b", "mlstm": "xlstm-350m",
         "slstm": "xlstm-350m"}
@@ -88,7 +90,7 @@ def test_step_matches_reference(kind):
     rcfg, cfg, rp, p = _setup(kind, seed=1)
     x = _x(cfg, 2, 8, seed=5)
     rstate = REF[kind][2](rcfg, 2, jnp.float32)
-    state = PORT[kind][1](cfg, 2, torch.float32)
+    state = PORT[kind][1](cfg, 2, torch.float32, device="cpu")
     for t in range(x.shape[1]):
         want, rstate = REF[kind][3](rp, rcfg, jnp.asarray(x[:, t:t + 1]),
                                     rstate)
@@ -108,7 +110,7 @@ def test_steps_reach_the_forward_state(kind):
     _, cfg, _, p = _setup(kind, seed=2)
     x = torch.tensor(_x(cfg, 2, 64, seed=9))
     out, final = PORT[kind][0](p, cfg, x, return_state=True)
-    state = PORT[kind][1](cfg, 2, torch.float32)
+    state = PORT[kind][1](cfg, 2, torch.float32, device="cpu")
     steps = []
     for t in range(x.shape[1]):
         y, state = PORT[kind][2](p, cfg, x[:, t:t + 1], state)

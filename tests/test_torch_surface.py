@@ -34,6 +34,8 @@ from repro_torch.core.algorithms import (run_dadm, run_ecd_psgd,
                                          run_hogwild, run_minibatch)
 from repro_torch.experiments import engine as TEng
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 PACKAGES = ["repro"] + sorted(
     m.name for m in pkgutil.walk_packages(repro.__path__, "repro.")
     if m.ispkg)
@@ -69,7 +71,7 @@ def test_every_module_has_a_port_or_a_reason():
 def _split(gen, **kw):
     key = jax.random.PRNGKey(0)
     tr, te = JS.get_generator(gen)(key, **kw).split(key=key)
-    return (tr, te), interop.split((tr.X, tr.y), (te.X, te.y))
+    return (tr, te), interop.split((tr.X, tr.y), (te.X, te.y), device="cpu")
 
 
 @pytest.fixture(scope="module")

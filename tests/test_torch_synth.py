@@ -14,6 +14,8 @@ from repro.data import synth as JS
 from repro_torch import random as R
 from repro_torch.data import synth as TS
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _same(ref, got):
     ref = np.asarray(ref)
@@ -51,19 +53,19 @@ def test_erf_inv_matches_reference():
                                         (11, (4, 5, 6))])
 def test_normal(seed, shape):
     _same(jax.random.normal(jax.random.PRNGKey(seed), shape),
-          R.normal(R.PRNGKey(seed), shape))
+          R.normal(R.PRNGKey(seed, device="cpu"), shape))
 
 
 @pytest.mark.parametrize("a,seed", [(1.5, 0), (1.5, 3), (1.0, 1), (4.0, 2),
                                     (2.25, 5)])
 def test_gamma(a, seed):
     _same(jax.random.gamma(jax.random.PRNGKey(seed), a, (500, 28)),
-          R.gamma(R.PRNGKey(seed), a, (500, 28)))
+          R.gamma(R.PRNGKey(seed, device="cpu"), a, (500, 28)))
 
 
 def test_gamma_below_one_is_refused():
     with pytest.raises(ValueError):
-        R.gamma(R.PRNGKey(0), 0.5, (4,))
+        R.gamma(R.PRNGKey(0, device="cpu"), 0.5, (4,))
 
 
 @pytest.mark.parametrize("df,seed", [(3.0, 0), (3.0, 9), (5.0, 1)])
@@ -71,7 +73,7 @@ def test_student_t(df, seed):
     """heavy_tailed's sampler (synth.py:242) at problem_generality's
     quick shape."""
     _same(jax.random.t(jax.random.PRNGKey(seed), df, (1000, 28)),
-          R.t(R.PRNGKey(seed), df, (1000, 28)))
+          R.t(R.PRNGKey(seed, device="cpu"), df, (1000, 28)))
 
 
 def test_batched_permutation_is_one_permutation_per_key():
@@ -109,7 +111,7 @@ GENERATOR_CASES = [
 @pytest.mark.parametrize("seed", [0, 5])
 def test_generator_matches_reference(name, kw, seed):
     ref = JS.get_generator(name)(jax.random.PRNGKey(seed), **kw)
-    got = TS.get_generator(name)(R.PRNGKey(seed), **kw)
+    got = TS.get_generator(name)(R.PRNGKey(seed, device="cpu"), **kw)
     _same(ref.X, got.X)
     _same(ref.y, got.y)
     assert got.name == ref.name
@@ -119,14 +121,15 @@ def test_ls_sequence_from_a_given_first_sample():
     first = np.linspace(-1, 1, 28).astype(np.float32)
     kw = {"n": 50, "d": 28, "mutate_frac": 0.25}
     ref = JS.make_ls_sequence(jax.random.PRNGKey(2), first_sample=first, **kw)
-    got = TS.make_ls_sequence(R.PRNGKey(2), first_sample=first, **kw)
+    got = TS.make_ls_sequence(R.PRNGKey(2, device="cpu"), first_sample=first,
+                              **kw)
     _same(ref.X, got.X)
 
 
 def test_diversity_variants_match_reference():
     kw = {"n": 803, "d": 30, "density": 0.1}
     base = JS.make_realsim_like(jax.random.PRNGKey(0), **kw)
-    tbase = TS.make_realsim_like(R.PRNGKey(0), **kw)
+    tbase = TS.make_realsim_like(R.PRNGKey(0, device="cpu"), **kw)
     for ref, got in zip(JS.make_diversity_variants(base),
                         TS.make_diversity_variants(tbase)):
         assert got.name == ref.name
@@ -138,7 +141,7 @@ def test_diversity_variants_match_reference():
                                 {"density": 0.0}, {"density": 1.5}])
 def test_character_knob_rejects_bad_knobs(kw):
     for gen, key in ((JS.make_character_knob, jax.random.PRNGKey(0)),
-                     (TS.make_character_knob, R.PRNGKey(0))):
+                     (TS.make_character_knob, R.PRNGKey(0, device="cpu"))):
         with pytest.raises(ValueError):
             gen(key, n=16, d=4, **kw)
 

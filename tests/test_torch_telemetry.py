@@ -20,6 +20,8 @@ from repro_torch.telemetry import metrics as TM
 from repro_torch.telemetry import trace as TT
 from repro_torch.telemetry.recorder import FlightRecorder
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def _no_leaked_tracer():

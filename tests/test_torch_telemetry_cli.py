@@ -23,6 +23,8 @@ from repro_torch.telemetry import __main__ as cli
 from repro_torch.telemetry import instrument, trace
 from repro_torch.telemetry.recorder import RECORDER
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _spec(name="tcli_tiny"):
     return SweepSpec(
@@ -91,8 +93,9 @@ def test_traced_dispatch_has_an_execute_child():
 def test_traced_sweep_nests_grid_bucket_execute(per_m):
     from repro_torch import random as R
     from repro_torch.data import synth
-    ds = synth.get_generator("higgs_like")(R.PRNGKey(0), n=160, d=8)
-    tr, te = ds.split(key=R.PRNGKey(0))
+    ds = synth.get_generator("higgs_like")(R.PRNGKey(0, device="cpu"),
+                                           n=160, d=8)
+    tr, te = ds.split(key=R.PRNGKey(0, device="cpu"))
     kw = dict(iters=40, eval_every=20, per_m=per_m, n_seeds=2)
     plain = engine.sweep("ecd_psgd", tr, te, [1, 2, 4], **kw)
     seq = RECORDER.snapshot()["seq"]

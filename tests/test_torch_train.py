@@ -41,6 +41,7 @@ from repro_torch.train import checkpoint as C
 from repro_torch.train import steps as S
 
 from _torch_train_parity import check_loss_and_grads, check_train_loop
+from _torch_threads import capped_env, one_torch_thread  # noqa: F401
 
 ARCHS = ["gemma3-1b", "qwen2.5-3b", "phi3-mini-3.8b", "qwen1.5-110b"]
 # gemma3's reduced window is 64: 72 tokens cross it
@@ -65,7 +66,7 @@ def _setup(arch):
 
 def _port_params(arch):
     _, cfg, rparams, _ = _setup(arch)
-    lm = interop.lm_params(cfg, rparams)
+    lm = interop.lm_params(cfg, rparams, device="cpu")
     for p in lm.parameters():
         p.requires_grad_(True)
     return lm
@@ -200,8 +201,8 @@ def test_train_step_updates_match_reference(arch, strategy, monkeypatch):
         seen.append((T.tree_map(lambda g: g.numpy().copy(), grads), kw))
         return real(params, grads, opt, **kw)
     monkeypatch.setattr(S, "adamw_update_", record)
-    state = S.init_train_state(cfg, strategy,
-                               params=interop.lm_params(cfg, rparams))
+    state = S.init_train_state(
+        cfg, strategy, params=interop.lm_params(cfg, rparams, device="cpu"))
     step = S.make_train_step(cfg, strategy=strategy, lr=2e-3)
     ref_p = jax.tree.map(jnp.asarray, rparams)
     ref_opt = ref_adamw_init(ref_p)
@@ -276,7 +277,7 @@ def test_model_checkpoint_across_packages(tmp_path):
     reference's pytree, segments stacked) and a reference model
     checkpoint restores in the port as a CausalLM."""
     rcfg, cfg, rparams, _ = _setup("gemma3-1b")
-    lm = interop.lm_params(cfg, rparams)
+    lm = interop.lm_params(cfg, rparams, device="cpu")
     C.save_checkpoint(tmp_path / "port", {"params": lm}, step=5)
     like = {"params": jax.tree.map(jnp.asarray, rparams)}
     back, step = RC.restore_checkpoint(tmp_path / "port", like)
@@ -295,7 +296,7 @@ def test_model_checkpoint_across_packages(tmp_path):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_lm_tree_inverts_lm_params(arch):
     _, cfg, rparams, _ = _setup(arch)
-    tree = interop.lm_tree(interop.lm_params(cfg, rparams))
+    tree = interop.lm_tree(interop.lm_params(cfg, rparams, device="cpu"))
     want = jax.tree_util.tree_flatten_with_path(rparams)[0]
     got = T.flatten_with_path(tree)
     assert [p for p, _ in got] == [RC._leaf_key(p) for p, _ in want]
@@ -351,7 +352,7 @@ def test_no_mesh_and_strategy_checks():
 
 
 def _cli(*args):
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env = capped_env(PYTHONPATH=os.path.join(REPO, "src"))
     return subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
                            *args], capture_output=True, text=True, env=env,
                           timeout=300, cwd=REPO)

@@ -18,6 +18,8 @@ from repro_torch.experiments import run as TRun_cli
 from repro_torch.experiments import runner as TRun
 from repro_torch.experiments import spec as TS
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ITERS = 60
 _EXACT = ("n", "d", "diversity", "diversity_ratio")
 

@@ -37,6 +37,7 @@ from repro_torch.serve.engine import greedy_generate
 
 from _torch_mrope import grid_positions
 from _torch_train_parity import check_loss_and_grads, check_train_loop
+from _torch_threads import capped_env, one_torch_thread  # noqa: F401
 
 ARCH = "qwen2-vl-72b"
 IMPLS = {"kernel": "pallas", "reference": "reference"}
@@ -56,7 +57,7 @@ def _setup():
         leaf = rparams["segments"][0]["attn"][name]
         rparams["segments"][0]["attn"][name] = (
             0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
-    params = interop.lm_params(cfg, rparams)
+    params = interop.lm_params(cfg, rparams, device="cpu")
     tokens = rng.integers(0, cfg.vocab_size, (2, SEQ), dtype=np.int32)
     vision = (0.02 * rng.standard_normal(
         (2, cfg.vision_tokens, cfg.d_model))).astype(np.float32)
@@ -195,7 +196,7 @@ def test_lm_tree_inverts_lm_params():
     assert len(got) == len(want)
     for (_, g), (_, w) in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
-    again = interop.lm_tree(interop.lm_params(cfg, tree))
+    again = interop.lm_tree(interop.lm_params(cfg, tree, device="cpu"))
     for (_, g), (_, w) in zip(T.flatten_with_path(again), got):
         assert torch.equal(g, w)
 
@@ -218,7 +219,7 @@ def test_full_param_count_matches_reference():
 
 
 def test_serve_launcher_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = capped_env(PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
          "--device", "cpu", "--requests", "2", "--prompt-len", "8",

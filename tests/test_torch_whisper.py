@@ -37,6 +37,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import engine as E
 
 from _torch_train_parity import check_loss_and_grads, check_train_loop
+from _torch_threads import capped_env, one_torch_thread  # noqa: F401
 
 ARCH = "whisper-small"
 IMPLS = {"kernel": "pallas", "reference": "reference"}
@@ -49,7 +50,7 @@ def _setup():
     rcfg, cfg = ref_get_arch(ARCH).reduced(), get_arch(ARCH).reduced()
     rparams = jax.tree.map(np.asarray, jax.jit(
         lambda key: RM.init_params(key, rcfg))(jax.random.PRNGKey(0)))
-    params = interop.lm_params(cfg, rparams)
+    params = interop.lm_params(cfg, rparams, device="cpu")
     rng = np.random.default_rng(7)
     tokens = rng.integers(0, cfg.vocab_size, (2, SEQ), dtype=np.int32)
     frames = (0.1 * rng.standard_normal(
@@ -224,7 +225,7 @@ def test_lm_tree_inverts_lm_params():
     assert [p for p, _ in got] == [RC._leaf_key(p) for p, _ in want]
     for (_, g), (_, w) in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
-    again = interop.lm_tree(interop.lm_params(cfg, tree))
+    again = interop.lm_tree(interop.lm_params(cfg, tree, device="cpu"))
     for (_, g), (_, w) in zip(T.flatten_with_path(again), got):
         assert torch.equal(g, w)
 
@@ -291,7 +292,7 @@ def test_full_param_count_and_plan_match_reference():
 
 
 def test_serve_launcher_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = capped_env(PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
          "--device", "cpu", "--requests", "2", "--prompt-len", "8",
