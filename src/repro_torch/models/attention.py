@@ -40,6 +40,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device_or_meta
 from repro_torch.distributed import local as DL
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.models.layers import _dense_init, apply_mrope, apply_rope
+from repro_torch.telemetry import instrument
 
 NEG_INF = -1e30
 ATTENTION_IMPLS = ("kernel", "reference")
@@ -121,6 +122,39 @@ def _attn_rows(q, k, v, mask, D):
     return torch.einsum("bhst,bthd->bshd", w.to(v.dtype), v)
 
 
+class _CoreEnd(torch.autograd.Function):
+    """Identity on the attention core's output whose backward opens the
+    core's ``attn.core`` span of phase ``backward``."""
+
+    @staticmethod
+    def forward(ctx, out, spans):
+        ctx.spans = spans
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, ct):
+        s = instrument.span("attn.core", "backward")
+        s.__enter__()
+        ctx.spans.append(s)
+        return ct, None
+
+
+class _CoreStart(torch.autograd.Function):
+    """Identity on the core's q, k and v whose backward closes the span
+    :class:`_CoreEnd` opened: every gradient of the core is in by then."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, spans):
+        ctx.spans = spans
+        return q.view_as(q), k.view_as(k), v.view_as(v)
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        if ctx.spans:
+            ctx.spans.pop().__exit__(None, None, None)
+        return gq, gk, gv, None
+
+
 def gqa_attention(q, k, v, mask=None):
     """q: (B,S,H,D); k,v: (B,T,KV,D); mask broadcastable to (B,1,S,T).
 
@@ -130,11 +164,24 @@ def gqa_attention(q, k, v, mask=None):
     full sequence runs shard by shard (``distributed.local.attention``:
     heads, or q's rows, over 'model'); a decode step's scores and
     weighted sum propagate over its sequence-sharded cache.
+
+    In a live training step (``telemetry.instrument``) the core is an
+    ``attn.core`` span, and its backward pass one more, bracketed by
+    identities on its inputs and output.
     """
     if q.shape[1] == 1 and DL.sequence_sharded(k):
         return _decode_sequence_sharded(q, k, v, mask)
     if DL.is_dtensor(q):
         return DL.attention(gqa_attention, q, k, v, mask)
+    if not instrument.live():
+        return _core(q, k, v, mask)
+    with instrument.span("attn.core"):
+        spans = []
+        q, k, v = _CoreStart.apply(q, k, v, spans)
+        return _CoreEnd.apply(_core(q, k, v, mask), spans)
+
+
+def _core(q, k, v, mask):
     B, S, H, D = q.shape
     KV = k.shape[2]
     if S == 1 and KV != H:

@@ -58,6 +58,11 @@ attention (heads or q's rows over 'model'), the SSM blocks and their
 decode steps (weights gathered, batch-sharded), MoE dispatch (experts on
 'model') and every cache write.  Parameters are
 built with ``requires_grad=False``; a trainer turns it on.
+
+In a live training step (``telemetry.instrument``) each block's
+application is a ``model.block`` span and each cross-entropy chunk a
+``model.ce`` span, inside the checkpointed functions, so the backward
+pass's recompute of each is a span of its own (phase ``recompute``).
 """
 
 from __future__ import annotations
@@ -80,6 +85,7 @@ from repro_torch.models.layers import (_dense_init, apply_mlp, apply_norm,
                                        init_embedding, init_learned_positions,
                                        init_mlp, init_norm)
 from repro_torch.models.moe import init_moe, moe_forward
+from repro_torch.telemetry import instrument
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +325,12 @@ def _apply_block(p: Block, cfg: ArchConfig, h, *, positions, h0=None,
     return h, aux
 
 
+def _timed_block(p: Block, cfg: ArchConfig, h, **kw):
+    """:func:`_apply_block` as a ``model.block`` span."""
+    with instrument.span("model.block"):
+        return _apply_block(p, cfg, h, **kw)
+
+
 def _embed_inputs(params: CausalLM, cfg: ArchConfig, batch):
     """Returns (h, positions).  ``vision_embeds`` (B, V, d) replace the
     first V token embeddings; learned positions are added with ids
@@ -456,10 +468,10 @@ def forward_hidden(params: CausalLM, cfg: ArchConfig, batch, *,
                   enc_out=enc_out, attention_impl=attention_impl,
                   constrain_inner=constrain_inner)
         if remat:
-            h, aux = checkpoint(_apply_block, p, cfg, h, use_reentrant=False,
+            h, aux = checkpoint(_timed_block, p, cfg, h, use_reentrant=False,
                                 **kw)
         else:
-            h, aux = _apply_block(p, cfg, h, **kw)
+            h, aux = _timed_block(p, cfg, h, **kw)
         if "load_balance_loss" in aux:
             lb = lb + aux["load_balance_loss"]
         if i in ends:
@@ -506,6 +518,11 @@ def _ce_chunk_size(B, S, vocab, devices=1):
 
 
 def _chunk_loss(h_c, lab_c, w, tied, constrain=None):
+    with instrument.span("model.ce"):
+        return _chunk_ll(h_c, lab_c, w, tied, constrain)
+
+
+def _chunk_ll(h_c, lab_c, w, tied, constrain):
     logits = DL.matmul(h_c, w.t() if tied else w).to(torch.float32)
     if constrain is not None:
         logits = constrain(logits)

@@ -261,9 +261,8 @@ class _Handler(BaseHTTPRequestHandler):
         elif query.get("drain") == "1":
             payload = {"traceEvents": tracer.drain(),
                        "displayTimeUnit": "ms",
-                       "otherData": {"producer": "repro_torch.telemetry",
-                                     "clock": "perf_counter",
-                                     "drained": True}}
+                       "otherData": dict(tracer.other_data(),
+                                         drained=True)}
         else:
             payload = tracer.payload()
         self._send_json(200, payload)

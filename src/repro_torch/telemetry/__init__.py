@@ -11,7 +11,8 @@ port's copies of ``repro/telemetry/{trace,metrics,recorder}.py``).
   * `recorder` — bounded rings of sweep progress events and mirrored
     spans (``GET /flight``).
   * `instrument` — the per-bucket dispatch span with its device-synced
-    ``execute`` child (imports torch; not imported here).
+    ``execute`` child, and the training step's device-timed spans, whose
+    totals land in the registry (imports torch; not imported here).
 
 CLI: ``python -m repro_torch.telemetry`` dumps the process registry,
 ``--summarize TRACE`` phase-breaks a saved trace and ``--watch URL``

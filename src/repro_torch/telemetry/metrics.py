@@ -228,6 +228,11 @@ class MetricsRegistry:
         with self._lock:
             return sorted(self._metrics.items())
 
+    def series(self, name: str) -> List[Tuple[Dict[str, str], object]]:
+        """Every series of the family ``name``: ``[(labels, snapshot)]``."""
+        return [(dict(labels), m.snapshot())
+                for (n, labels), m in self._items() if n == name]
+
     def to_dict(self, prefix: str = "") -> Dict:
         """JSON-able snapshot ``{name{labels}: value-or-histogram}``,
         optionally filtered by name prefix."""

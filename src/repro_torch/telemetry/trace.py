@@ -13,6 +13,12 @@ port's copy of ``repro/telemetry/trace.py``).
   * **One tracer at a time.**  :func:`start` installs the process-wide
     tracer, :func:`stop` uninstalls it but keeps it addressable as the
     *last* tracer, so :func:`export` after ``stop()`` writes the trace.
+  * **The profiler's clock.**  Spans are timed with ``perf_counter_ns``
+    and exported in microseconds from the tracer's start, whose Unix-epoch
+    nanoseconds ``otherData.base_epoch_ns`` records (:data:`CLOCK`):
+    ``torch.profiler`` stamps its host events and the device's activity
+    on the Unix epoch, so ``ts + base_epoch_ns / 1e3`` lays an exported
+    trace over a profile of the same run.
 
 Usage::
 
@@ -43,6 +49,10 @@ _STACK: contextvars.ContextVar[tuple] = contextvars.ContextVar(
     "repro_torch_trace_stack", default=())
 
 
+#: the clock of the exported ``ts`` (microseconds): the Unix epoch, as
+#: ``torch.profiler``'s events have it, less ``otherData.base_epoch_ns``
+CLOCK = "unix_epoch_from_base"
+
 #: registered span sinks — callables fed every completed span event while
 #: a tracer is installed (the flight recorder mirrors spans this way);
 #: sinks must be cheap and never raise
@@ -61,6 +71,23 @@ def remove_span_sink(fn) -> None:
         _SPAN_SINKS.remove(fn)
 
 
+#: callables run before a tracer's events are read out (the device-timed
+#: spans of ``instrument`` record once the device has reached them)
+_FLUSH_HOOKS: List = []
+
+
+def add_flush_hook(fn) -> None:
+    """Register ``fn()``, run before :meth:`Tracer.payload` and
+    :meth:`Tracer.drain` read the events.  Idempotent per callable."""
+    if fn not in _FLUSH_HOOKS:
+        _FLUSH_HOOKS.append(fn)
+
+
+def _flush() -> None:
+    for fn in _FLUSH_HOOKS:
+        fn()
+
+
 class Tracer:
     """Collects completed spans as Chrome-trace ``X`` (complete) events."""
 
@@ -68,6 +95,8 @@ class Tracer:
         self._lock = threading.Lock()
         self._events: List[Dict] = []
         self.t0_ns = time.perf_counter_ns()
+        #: the Unix epoch's ns at ``t0_ns``, the exported ``ts``'s origin
+        self.base_epoch_ns = time.time_ns()
 
     def record(self, name: str, start_ns: int, dur_ns: int, depth: int,
                args: Dict) -> None:
@@ -96,18 +125,24 @@ class Tracer:
         """Pop and return every recorded span (the HTTP ``/trace?drain=1``
         path — a poller that exports incrementally without holding the
         whole run in tracer memory)."""
+        _flush()
         with self._lock:
             evs, self._events = self._events, []
             return evs
 
     def payload(self) -> Dict:
         """The exported JSON object (Chrome-trace "JSON Object Format")."""
+        _flush()
         return {
             "traceEvents": self.events,
             "displayTimeUnit": "ms",
-            "otherData": {"producer": "repro_torch.telemetry",
-                          "clock": "perf_counter"},
+            "otherData": self.other_data(),
         }
+
+    def other_data(self) -> Dict:
+        """The export's ``otherData``: its producer and clock."""
+        return {"producer": "repro_torch.telemetry", "clock": CLOCK,
+                "base_epoch_ns": self.base_epoch_ns}
 
     def export(self, path: str) -> str:
         payload = self.payload()

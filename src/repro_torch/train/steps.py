@@ -42,6 +42,12 @@ compression on the card, two compressions a step.
 
 Steps return the state and metrics as tensors on the device; nothing in a
 step waits for the device.
+
+Each step is a ``train.step`` span of ``telemetry.instrument``, timed on
+the device while the port's tracer runs or a profiler records: inside it
+``train.forward`` (the loss), ``train.backward`` (the gradients, the
+checkpoints' recompute nested in it, and their assembly into the tree),
+and ``train.optimizer`` (AdamW's apply).
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from repro_torch.distributed import rules as RU
 from repro_torch.distributed.mesh import check_model_mesh
 from repro_torch.models import model as M
 from repro_torch.optim import adamw_init, adamw_update_
+from repro_torch.telemetry import instrument
 
 
 def mesh_context(mesh):
@@ -159,15 +166,17 @@ def value_and_grad(lm, loss, batch, out=None):
     parameter the loss never reads (Mamba2's ``dt_bias``) gets a zero
     gradient of its own type, as ``jax.grad`` gives it.  A DTensor loss
     is replicated first, so each rank seeds the backward pass with 1."""
-    (l, aux) = loss(lm, batch)
+    with instrument.span("train.forward", "forward"):
+        (l, aux) = loss(lm, batch)
     if DL.is_dtensor(l):
         l = DL.replicate(l)
     names, params = zip(*lm.named_parameters())
-    grads = torch.autograd.grad(l, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
-    return l.detach(), {k: v.detach() for k, v in aux.items()}, \
-        interop.lm_tree(lm, dict(zip(names, grads)), out)
+    with instrument.span("train.backward", "backward"):
+        grads = torch.autograd.grad(l, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        tree = interop.lm_tree(lm, dict(zip(names, grads)), out)
+    return l.detach(), {k: v.detach() for k, v in aux.items()}, tree
 
 
 def _global_norm(tree):
@@ -265,7 +274,8 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, strategy="sync",
 
     def apply(state, grads):
         # in place: the model's parameters are views of the state's leaves
-        return adamw_update_(state["params"], grads, state["opt"], lr=lr)
+        with instrument.span("train.optimizer", "optimizer"):
+            return adamw_update_(state["params"], grads, state["opt"], lr=lr)
 
     def metrics_of(l, aux, grads):
         return {"loss": _plain(l), "ce_loss": _plain(aux["ce_loss"]),
@@ -287,19 +297,19 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, strategy="sync",
         return dict(state, opt=new_opt, step=state["step"] + 1,
                     prev_grads=prev), metrics
 
-    step = {"sync": sync_step, "stale": stale_step}[strategy]
+    inner = {"sync": sync_step, "stale": stale_step}[strategy]
 
     def grads(state, batch):
         """The step's (loss, aux, gradients) without the update."""
         with mesh_context(mesh):
             return grads_of(state["model"], batch)
 
-    def mesh_step(state, batch):
-        with mesh_context(mesh):
-            return step(state, batch)
-    out = step if mesh is None else mesh_step
-    out.grads = grads
-    return out
+    def step(state, batch):
+        with mesh_context(mesh), instrument.step("train.step",
+                                                 state["step"].device):
+            return inner(state, batch)
+    step.grads = grads
+    return step
 
 
 # ---------------------------------------------------------------------------
