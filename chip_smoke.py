@@ -127,11 +127,13 @@
    runs under ``torch.profiler``: the ten device kernels by total time
    and the device's busy share of the window are printed ("not measured"
    if the trace holds no device time).
-6. Checks the serving output: the prefill's next-token logits against the
-   same prefill with no kernel (``attention_impl="reference"``) within
-   2e-2 relative L2, and, in float32 on a 6-layer cut, the prefill's
-   logits at each of 1100 positions against token-by-token decoding
-   within 5e-4.
+6. Checks the serving output: the prefill's next-token logits, and those
+   of the same prefill with no kernel (``attention_impl="reference"``),
+   each against the no-kernel prefill from the same weights in float32
+   within 3e-2 relative L2, while the no-kernel prefill from the weights
+   rounded to float8 e4m3 must read above it; and, in float32 on a
+   6-layer cut, the prefill's logits at each of 1100 positions against
+   token-by-token decoding within 5e-4.
 6b. Phase families: gemma3-1b is freed (the bytes still allocated are
    printed), then xlstm-350m and zamba2-1.2b at full width and depth,
    arctic-480b at full width and 2 layers (its 35 do not fit),
@@ -1084,14 +1086,38 @@ def _rel_l2(a, b) -> float:
                  / torch.linalg.vector_norm(b.float()))
 
 
+# phase 6 (a): a bfloat16 prefill of gemma3-1b against float32.  Over six
+# weight seeds on an H100 the kernel and the no-kernel prefill read
+# 1.64-1.86 % and the no-kernel prefill from float8 e4m3 weights 22-24 %
+SERVE_TO_F32 = 3e-2
+
+
+def _float8_rounded(params):
+    """A copy of ``params`` with every floating tensor rounded to float8
+    e4m3 and back: phase 6's control."""
+    import copy
+    import torch
+    out = copy.deepcopy(params)
+    with torch.no_grad():
+        for t in [*out.parameters(), *out.buffers()]:
+            if t.is_floating_point():
+                t.copy_(t.to(torch.float8_e4m3fn).to(t.dtype))
+    return out
+
+
 def check_serve(dev, params, batch, logits):
-    """Phase 6: (a) the kernel prefill against the prefill with no kernel,
-    bfloat16 at full width: relative L2 of the next-token logits at most
-    2e-2; (b) float32 on a 6-layer cut (five local layers, one global),
-    one prompt of 1100 tokens: the prefill's logits at every position
-    against token-by-token decoding within 5e-4, the reference's own
-    bound (tests/test_archs.py).  The check (a) call converts ``params``
-    to float32 in place."""
+    """Phase 6: (a) bfloat16 at full width, the kernel prefill and the
+    prefill with no kernel, each against the prefill with no kernel from
+    the same weights in float32: relative L2 of the next-token logits at
+    most ``SERVE_TO_F32``; the prefill with no kernel from the weights
+    rounded to float8 e4m3 must exceed it, or the check could not tell a
+    fault from rounding.  (b) float32 on a 6-layer cut (five local layers,
+    one global), one prompt of 1100 tokens: the prefill's logits at every
+    position against token-by-token decoding within 5e-4, the reference's
+    own bound (tests/test_archs.py).  The kernel prefill against the one
+    with no kernel is printed, not checked: two bfloat16 paths each about
+    1.8 % from float32 differ by about 2 %.  The check (a) call converts
+    ``params`` to float32 in place."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.serve import engine as E
@@ -1101,15 +1127,21 @@ def check_serve(dev, params, batch, logits):
     plain = prefill_plain(params, batch)
     rel = _rel_l2(logits, plain)
     agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
-    if not rel <= 2e-2:
-        raise AssertionError(f"kernel prefill differs from the plain one: "
-                             f"relative L2 {rel} > 2e-2")
-    # where the difference comes from: each bfloat16 path against the same
-    # weights in float32 (printed, not checked)
+    control = prefill_plain(_float8_rounded(params), batch)
     exact = prefill_plain(params.float(), batch)
     to_f32 = {"kernel": _rel_l2(logits, exact),
-              "reference": _rel_l2(plain, exact)}
-    del params, plain, exact
+              "reference": _rel_l2(plain, exact),
+              "float8_weights": _rel_l2(control, exact)}
+    del params, plain, control, exact
+    for path in ("kernel", "reference"):
+        if not to_f32[path] <= SERVE_TO_F32:
+            raise AssertionError(
+                f"{path} prefill differs from float32: relative L2 "
+                f"{to_f32[path]} > {SERVE_TO_F32}")
+    if not to_f32["float8_weights"] > SERVE_TO_F32:
+        raise AssertionError(
+            f"float8 weights pass the serve check: relative L2 "
+            f"{to_f32['float8_weights']} <= {SERVE_TO_F32}")
 
     cfg6 = dataclasses.replace(cfg, num_layers=6, dtype="float32")
     gen = torch.Generator(device=dev).manual_seed(1)

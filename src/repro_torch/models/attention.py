@@ -22,6 +22,16 @@ Cross-attention is plain, unmasked :func:`gqa_attention` under both
 values, as in the reference, and decoding recomputes its keys and values
 over the whole encoder output at every step.
 
+Unlike the reference, the plain causal prefill (:func:`gqa_forward`'s
+``"reference"`` and :func:`mla_forward`) reads only the keys each row
+chunk can see: above ``Q_CHUNK`` rows, chunk rows ``[r0, r1)`` score keys
+``[max(0, r0 - window + 1), r1)`` (``[0, r1)`` for ``window`` 0) instead
+of all of them.  The keys left out had softmax weight exactly 0, so per
+score element the arithmetic is the reference's and only the order of the
+softmax's and P.V's sums differs.  At ``window`` 0 and S a multiple of
+``Q_CHUNK`` the chunks read (n + 1) / (2n) of the S x S scores for n
+chunks: 10 of 16 at S = 4096.
+
 Unlike the reference, :func:`gqa_decode` and :func:`mla_decode` write the
 new entries into their cache in place and return the same cache; on a
 mesh the rank that holds the slot writes it (``distributed.local.
@@ -111,6 +121,11 @@ def causal_mask(q_len, kv_len, q_offset=0, window=0, device=DEFAULT_DEVICE):
 Q_CHUNK = 1024          # q-row tiling threshold for long sequences
 
 
+def _visible_keys(r0, r1, window):
+    """The keys ``[lo, hi)`` that causal rows ``[r0, r1)`` can see."""
+    return (max(0, r0 - window + 1) if window else 0), r1
+
+
 def _attn_rows(q, k, v, mask, D):
     """One q-row-block of attention.  q: (B,c,H,D); k,v: (B,T,H,Dv);
     mask broadcastable to (B,1,c,T)."""
@@ -173,15 +188,37 @@ def gqa_attention(q, k, v, mask=None):
         return _decode_sequence_sharded(q, k, v, mask)
     if DL.is_dtensor(q):
         return DL.attention(gqa_attention, q, k, v, mask)
+    return _timed_core(q, k, v, mask)
+
+
+def _causal_attention(q, k, v, window=0):
+    """Causal self-attention (sliding over ``window`` keys when > 0):
+    :func:`gqa_attention` under ``causal_mask(S, S, window=window)``,
+    whose row chunks read only the keys their rows can see.  A mesh's
+    shards take :func:`gqa_attention`'s full mask."""
+    S = q.shape[1]
+    mask = causal_mask(S, S, window=window, device=q.device)[None, None]
+    if DL.is_dtensor(q):
+        return gqa_attention(q, k, v, mask)
+    return _timed_core(q, k, v, mask, window)
+
+
+def _timed_core(q, k, v, mask, window=None):
+    """:func:`_core`; in a live training step an ``attn.core`` span, and
+    its backward pass one more, bracketed by identities on its inputs and
+    output."""
     if not instrument.live():
-        return _core(q, k, v, mask)
+        return _core(q, k, v, mask, window)
     with instrument.span("attn.core"):
         spans = []
         q, k, v = _CoreStart.apply(q, k, v, spans)
-        return _CoreEnd.apply(_core(q, k, v, mask), spans)
+        return _CoreEnd.apply(_core(q, k, v, mask, window), spans)
 
 
-def _core(q, k, v, mask):
+def _core(q, k, v, mask, window=None):
+    """``window``: None for any ``mask``; an int when ``mask`` is
+    ``causal_mask(S, S, window=window)`` (broadcast over B and H), so that
+    each row chunk reads only its visible keys (:func:`_visible_keys`)."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     if S == 1 and KV != H:
@@ -202,16 +239,21 @@ def _core(q, k, v, mask):
     if mask is not None and mask.dim() == 3:
         mask = mask[:, :, None]
 
+    T = k.shape[1]
     if S <= Q_CHUNK or S % Q_CHUNK:
         out = _attn_rows(q, k, v, mask, D)
         return out.reshape(B, S, H, v.shape[-1])
 
     chunks = []
     for i in range(S // Q_CHUNK):
-        rows = slice(i * Q_CHUNK, (i + 1) * Q_CHUNK)
-        mc = (mask[:, :, rows] if mask is not None and mask.shape[2] == S
+        r0, r1 = i * Q_CHUNK, (i + 1) * Q_CHUNK
+        mc = (mask[:, :, r0:r1] if mask is not None and mask.shape[2] == S
               else mask)
-        chunks.append(_attn_rows(q[:, rows], k, v, mc, D))
+        lo, hi = (0, T) if window is None else _visible_keys(r0, r1, window)
+        kc, vc = k, v
+        if (lo, hi) != (0, T):          # a slice adds a backward copy
+            kc, vc, mc = k[:, lo:hi], v[:, lo:hi], mc[..., lo:hi]
+        chunks.append(_attn_rows(q[:, r0:r1], kc, vc, mc, D))
     return torch.cat(chunks, dim=1)
 
 
@@ -271,8 +313,7 @@ def gqa_forward(p, cfg: ArchConfig, x, positions, *, window=0,
     if attention_impl == "kernel":
         out = kfa.flash_attention(q, k, v, causal=True, window=window)
     else:
-        mask = causal_mask(S, S, window=window, device=x.device)[None, None]
-        out = gqa_attention(q, k, v, mask)
+        out = _causal_attention(q, k, v, window)
     return DL.matmul(DL.merge_heads(out, B, S, -1), p["wo"])
 
 
@@ -368,8 +409,7 @@ def mla_forward(p, cfg: ArchConfig, x, positions):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, h, m.qk_rope_head_dim)],
                   dim=-1)
-    mask = causal_mask(S, S, device=x.device)[None, None]
-    out = gqa_attention(q, k, v, mask)
+    out = _causal_attention(q, k, v)
     return DL.matmul(DL.merge_heads(out, B, S, -1), p["wo"])
 
 
