@@ -20,6 +20,7 @@ prints one JSON line per seed and variant with the gaps
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import sys
@@ -44,6 +45,11 @@ def readings(cell, seed, device, variants=("fp8", "half")):
     base = train.reference(cfg, tr, batches, seed, device)
     out = {"reference_s": time.perf_counter() - t0}
     for v in variants:
+        # hand the last reference's cached blocks back first: kept, they
+        # split the memory that the next one needs (the fp8 control ran out
+        # of the card's 80 GB after the float32 reference without this)
+        gc.collect()
+        torch.cuda.empty_cache()
         other = train.reference(
             cfg, tr, [inputs.halve(*b) for b in batches] if v == "half"
             else batches, seed, device, fp8=v == "fp8")

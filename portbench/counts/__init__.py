@@ -1,2 +1,3 @@
 """Operation counts from shapes: the model FLOPs of a training step
-(:mod:`.flops`).  Every term is named."""
+(:mod:`.flops`), summed from the terms of the configuration's reference
+kind (:mod:`.lm` for the ``lm`` kind).  Every term is named."""

@@ -3,7 +3,8 @@ configuration and traffic; ``portbench/configs/<config>.json`` holds the
 configuration's sizes, ``portbench/traffic/<traffic>.json`` the mix's
 parameters, ``portbench/limits/<cell>.json`` the limits of the numbers
 the run compares, and ``portbench/metrics/<metric>.py`` the reader of each
-per-layer metric (a function ``read(ctx)``)."""
+per-layer metric (a function ``read(ctx)``).  The configuration's
+``reference`` key names its reference kind (:mod:`.kinds`)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import dataclasses
 import importlib.util
 import json
 import os
+
+from portbench.harness import kinds
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(PKG)
@@ -42,16 +45,18 @@ def _reports(metric, cell):
 
 def load(name, root=ROOT):
     """The cell ``name`` of ``root``'s ``BENCHMARK.json``, its files read
-    from ``root/portbench``."""
+    from ``root/portbench``; a ValueError where its configuration names no
+    reference kind that is present."""
     bench = benchmark(root)
     entry = next((w for w in bench["workloads"] if w["name"] == name), None)
     if entry is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json; known: "
                        f"{[w['name'] for w in bench['workloads']]}")
     pkg = os.path.join(root, "portbench")
+    cfg = _json(pkg, "configs", entry["config"] + ".json")
+    kinds.reference(cfg)
     return Cell(
-        name=name, chips=entry["chips"],
-        cfg=_json(pkg, "configs", entry["config"] + ".json"),
+        name=name, chips=entry["chips"], cfg=cfg,
         traffic=_json(pkg, "traffic", entry["traffic"] + ".json"),
         limits=_json(pkg, "limits", name + ".json"),
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],

@@ -1,7 +1,8 @@
 """What a run feeds the program, made from ``--seed`` on the run's device:
-the weights (a tree of :func:`reference.lm.param_specs`, every normal draw
-from one ``torch.Generator`` in a few large calls into one buffer, in the
-configuration's type) and a pool of distinct token batches."""
+the weights (the tree of the ``param_specs`` of the configuration's
+reference kind, every normal draw from one ``torch.Generator`` in a few
+large calls into one buffer, in the configuration's type) and a pool of
+distinct token batches."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import math
 
 import torch
 
-from portbench.reference import lm
+from portbench.harness import kinds
 from portbench.reference.trees import leaves
 
 #: elements a single normal draw fills
@@ -23,7 +24,7 @@ def _seed(seed: int, stream: int) -> int:
 
 def weights(cfg, seed: int, device):
     """The weight tree for ``cfg`` drawn from ``seed``."""
-    specs = lm.param_specs(cfg)
+    specs = kinds.reference(cfg).param_specs(cfg)
     dtype = getattr(torch, cfg["dtype"])
     normal = [(p, s) for p, s in leaves(specs) if not isinstance(s[2], str)]
     total = sum(math.prod(s[0]) for _, s in normal)

@@ -24,35 +24,31 @@ import types
 
 import torch
 
-from portbench.harness import compare, inputs
+from portbench.harness import compare, inputs, kinds
 from portbench.harness import trace as TR
-from portbench.reference import lm, steps as RS
+from portbench.reference import steps as RS
 from portbench.reference.trees import leaves
 
 
+def _attr(obj, path):
+    for name in path.split("."):
+        obj = getattr(obj, name, None)
+    return obj
+
+
 def program_arch(cfg):
-    """The port's ``ArchConfig`` of the configuration, its sizes checked
-    against the configuration file's."""
+    """The port's ``ArchConfig`` of the configuration, the sizes and layer
+    kinds of its reference kind checked against the port's."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import model as M
+    ref = kinds.reference(cfg)
     a = get_arch(cfg["arch"])
-    got = {"num_layers": a.num_layers, "d_model": a.d_model,
-           "num_heads": a.num_heads, "num_kv_heads": a.num_kv_heads,
-           "head_dim": a.resolved_head_dim, "d_ff": a.d_ff,
-           "vocab_size": a.vocab_size, "rope_theta": a.rope_theta,
-           "dtype": a.dtype, "tie_embeddings": a.tie_embeddings}
-    want = {k: cfg[k] for k in got}
-    kinds = [s.kind for s in M.layer_plan(a)]
-    if got != want or kinds != lm.layer_kinds(cfg):
+    want = ref.program_sizes(cfg)
+    got = {k: _attr(a, k) for k in want}
+    plan = [s.kind for s in M.layer_plan(a)]
+    if got != want or plan != ref.layer_kinds(cfg):
         raise ValueError(f"the port's {cfg['arch']} is not the "
-                         f"configuration file's: {got} {kinds}")
-    if a.ssm is not None:
-        s = cfg["ssm"]
-        mine = {"state_dim": a.ssm.state_dim, "expand": a.ssm.expand,
-                "conv_width": a.ssm.conv_width,
-                "chunk_size": a.ssm.chunk_size}
-        if mine != {k: s[k] for k in mine}:
-            raise ValueError(f"the port's SSM sizes {mine} differ from {s}")
+                         f"configuration file's: {got} {plan}")
     return a
 
 
@@ -110,8 +106,9 @@ def reference(cfg, traffic, batches, seed, device, fp8=False):
     ``fp8``: the lower-precision control)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    ref = kinds.reference(cfg)
     w = inputs.weights(cfg, seed, device)
-    out = RS.run_sync(w, batches, cfg, traffic, lm.Arith(fp8=fp8))
+    out = ref.run_sync(w, batches, cfg, traffic, ref.Arith(fp8=fp8))
     w0 = inputs.weights(cfg, seed, device)
     out["change"] = RS.change_norms(w, w0)
     return out

@@ -1,4 +1,7 @@
-"""Plain float32 reference of the decoder language models the benchmark
+"""The ``lm`` reference kind (see :mod:`portbench.harness.kinds`; its
+FLOPs: :mod:`portbench.counts.lm`).
+
+Plain float32 reference of the decoder language models the benchmark
 trains: a dense decoder (RMSNorm, causal multi-head attention with RoPE,
 SwiGLU) and Zamba2's hybrid stack (Mamba2 blocks and one shared attention
 block applied at several depths, arXiv:2411.15242).  It reads its sizes
@@ -84,6 +87,21 @@ def mamba_dims(cfg):
 
 def head_dim(cfg):
     return cfg.get("head_dim") or cfg["d_model"] // cfg["num_heads"]
+
+
+def program_sizes(cfg):
+    """{attribute path of the port's ``ArchConfig``: the configuration
+    file's value}, checked at every run."""
+    out = {"num_layers": cfg["num_layers"], "d_model": cfg["d_model"],
+           "num_heads": cfg["num_heads"],
+           "num_kv_heads": cfg["num_kv_heads"],
+           "resolved_head_dim": cfg["head_dim"], "d_ff": cfg["d_ff"],
+           "vocab_size": cfg["vocab_size"], "rope_theta": cfg["rope_theta"],
+           "dtype": cfg["dtype"], "tie_embeddings": cfg["tie_embeddings"]}
+    if "ssm" in cfg:
+        out.update({f"ssm.{k}": cfg["ssm"][k] for k in
+                    ("state_dim", "expand", "conv_width", "chunk_size")})
+    return out
 
 
 def param_specs(cfg):
@@ -280,3 +298,10 @@ def head_loss_sum(h, final_scale, w_head, labels, cfg, ar, tied):
     keep = labels >= 0
     pick = lp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     return (pick * keep).sum().neg()
+
+
+def run_sync(params, batches, cfg, traffic, ar):
+    """AdamW steps of the reference from ``params``, one on each of
+    ``batches``: :func:`.steps.run_sync`, which walks these layers."""
+    from . import steps     # here: steps imports this module
+    return steps.run_sync(params, batches, cfg, traffic, ar)

@@ -23,7 +23,8 @@ def ref_cfg(arch, dtype="float32", reduced=True, **smaller):
     c = get_arch(arch)
     c = dataclasses.replace(c.reduced() if reduced else c, dtype=dtype,
                             **smaller)
-    out = {"arch": arch, "num_layers": c.num_layers, "d_model": c.d_model,
+    out = {"arch": arch, "reference": "lm",
+           "num_layers": c.num_layers, "d_model": c.d_model,
            "num_heads": c.num_heads, "num_kv_heads": c.num_kv_heads,
            "head_dim": c.resolved_head_dim, "d_ff": c.d_ff,
            "vocab_size": c.vocab_size, "rope_theta": c.rope_theta,

@@ -1,24 +1,27 @@
 """Guards of the benchmark: every cell of ``BENCHMARK.json`` resolves to its
-files, new files are found by name, nothing imports JAX, the JAX package
-or (in the reference) the program, the counts hold their hand-worked
-values, a run with a fault planted in its timed path (from here, by
+files, new files are found by name, every reference kind is whole and the
+harness takes each model-specific piece from the kind its configuration
+names, nothing imports JAX, the JAX package or (in the reference) the
+program, the counts hold their hand-worked values, a run with a fault planted in its timed path (from here, by
 patching the program's step or feed) comes out not correct, and so does
 the lower-precision control.  The card-only test
 runs each cell end to end for 10 seconds."""
 
 import ast
+import glob
 import json
 import os
 import shutil
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
 
 from _portbench_tiny import ROOT, ref_cfg, tiny_cell, tiny_run
 from portbench.counts import flops
-from portbench.harness import cells, compare, inputs, train
+from portbench.harness import cells, compare, inputs, kinds, train
 
 PKG = os.path.join(ROOT, "portbench")
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -71,6 +74,157 @@ def test_new_files_are_found_by_name(tmp_path):
     assert cell.cfg["name"] == "new-model" and cell.traffic["seq"] == 1024
     assert [m["name"] for m in cell.per_layer][-1] == "new_metric"
     assert cells.reader("new_metric", root=str(tmp_path))(None) == 42.0
+
+
+#: every module of ``counts/`` and ``reference/`` that claims to be a kind
+KINDS = sorted(set(kinds.present()) | {
+    os.path.basename(p)[:-3] for p in glob.glob(os.path.join(PKG, "counts",
+                                                             "*.py"))
+    if os.path.basename(p) not in ("__init__.py", "flops.py")})
+CONFIGS = sorted(os.path.basename(p)[:-5] for p in
+                 glob.glob(os.path.join(PKG, "configs", "*.json")))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_every_kind_is_whole(kind):
+    ref = kinds.reference({"reference": kind})
+    for name in kinds.NAMES:
+        assert callable(getattr(ref, name)), (kind, name)
+    assert callable(kinds.counts({"reference": kind}).terms)
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_every_configuration_names_a_kind(config):
+    cfg = json.load(open(os.path.join(PKG, "configs", config + ".json")))
+    assert cfg["reference"] in kinds.present()
+    sizes = kinds.reference(cfg).program_sizes(cfg)
+    assert sizes and all(isinstance(k, str) and isinstance(
+        v, (str, int, float, bool, type(None))) for k, v in sizes.items())
+    assert flops.per_token(cfg, 4096) > 0
+
+
+PLANTED_REFERENCE = """
+from . import lm
+
+CALLS = {"param_specs": 0, "program_sizes": 0, "run_sync": 0}
+layer_kinds, Arith = lm.layer_kinds, lm.Arith
+
+
+def param_specs(cfg):
+    CALLS["param_specs"] += 1
+    return lm.param_specs(cfg)
+
+
+def program_sizes(cfg):
+    CALLS["program_sizes"] += 1
+    return lm.program_sizes(cfg)
+
+
+def run_sync(params, batches, cfg, traffic, ar):
+    CALLS["run_sync"] += 1
+    return lm.run_sync(params, batches, cfg, traffic, ar)
+"""
+
+PLANTED_COUNTS = """
+from portbench.counts import lm
+
+
+def terms(cfg, seq):
+    return {k: 2 * v for k, v in lm.terms(cfg, seq).items()}
+"""
+
+
+@pytest.fixture
+def planted(tmp_path, monkeypatch):
+    """A test-only kind, ``planted``, in directories of its own added to
+    the two packages: the ``lm`` kind with its FLOP terms doubled and the
+    calls of three of its functions counted."""
+    from portbench import counts, reference
+    pkgs = ((reference, PLANTED_REFERENCE), (counts, PLANTED_COUNTS))
+    for pkg, source in pkgs:
+        d = tmp_path / pkg.__name__.rsplit(".", 1)[1]
+        d.mkdir()
+        (d / "planted.py").write_text(source)
+        monkeypatch.setattr(pkg, "__path__", [*pkg.__path__, str(d)])
+    yield
+    for pkg, _ in pkgs:
+        sys.modules.pop(pkg.__name__ + ".planted", None)
+
+
+def _traced_on_the_cpu(run_steps, steps, host=False):
+    t0 = time.perf_counter()
+    run_steps(steps)
+    return train.TR.Trace([], [], time.perf_counter() - t0, steps)
+
+
+def test_a_planted_kind_is_the_one_the_harness_uses(planted, monkeypatch):
+    from repro_torch.configs import registry
+    assert "planted" in kinds.present()
+    handed, values = {}, {}
+    monkeypatch.setattr(train.TR, "traced", _traced_on_the_cpu)
+    for kind in ("lm", "planted"):
+        cell, arch = tiny_cell(CELLS[0])
+        cell.cfg["reference"] = kind
+        # the port's registry gives the cut configuration, so that the run
+        # checks the sizes itself
+        monkeypatch.setattr(registry, "get_arch", lambda name: arch)
+
+        def read(ctx, kind=kind):
+            handed[kind] = ctx.flops_per_token
+
+        readers = {m["name"]: read for m in cell.per_layer}
+        res = train.run(cell, 5, 0.0, True, "cpu", time.perf_counter(),
+                        peaks=cells.peaks(), readers=readers)
+        values[kind] = res["values"]
+    mod = sys.modules["portbench.reference.planted"]
+    assert all(n > 0 for n in mod.CALLS.values()), mod.CALLS
+    seq = cell.traffic["seq"]
+    assert handed["planted"] == flops.per_token(cell.cfg, seq) \
+        == 2 * handed["lm"]
+    assert values["planted"] == values["lm"]
+    assert compare.checks(values["planted"], cell.limits) == \
+        compare.checks(values["lm"], cell.limits)
+
+
+def test_an_unknown_kind_is_refused_before_the_weights(monkeypatch):
+    cell, _ = tiny_cell(CELLS[0])
+    cell.cfg["reference"] = "nosuch"
+    monkeypatch.setattr(inputs, "weights", lambda *a: pytest.fail(a))
+    with pytest.raises(ValueError, match="'nosuch'") as err:
+        train.run(cell, 5, 0.0, False, "cpu", time.perf_counter())
+    assert all(repr(k) in str(err.value) for k in kinds.present())
+
+
+def test_run_prints_nothing_for_an_unknown_kind(tmp_path):
+    shutil.copytree(PKG, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), tmp_path)
+    os.symlink(os.path.join(ROOT, "src"), tmp_path / "src")
+    name = cells.load(CELLS[0]).cfg["name"]
+    path = tmp_path / "portbench" / "configs" / (name + ".json")
+    path.write_text(json.dumps(dict(json.loads(path.read_text()),
+                                    reference="nosuch")))
+    r = subprocess.run([sys.executable, "portbench/run.py", "--workload",
+                        CELLS[0], "--seed", "1", "--seconds", "1",
+                        "--trace", "0"], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode != 0 and r.stdout == "", r
+    assert "ValueError" in r.stderr and "'nosuch'" in r.stderr, r.stderr
+
+
+@pytest.mark.parametrize("arch,key,value", [
+    ("phi3-mini-3.8b", "d_ff", 8193),
+    ("zamba2-1.2b", "ssm.state_dim", 65),
+    ("phi3-mini-3.8b", "ssm.state_dim", 64)])    # phi3 has no SSM
+def test_a_wrong_program_size_is_refused(arch, key, value, monkeypatch):
+    from portbench.reference import lm
+    _, cfg = ref_cfg(arch, "bfloat16", reduced=False)
+    train.program_arch(cfg)
+    sizes = lm.program_sizes
+    monkeypatch.setattr(lm, "program_sizes",
+                        lambda c: dict(sizes(c), **{key: value}))
+    with pytest.raises(ValueError, match="is not the configuration file's"):
+        train.program_arch(cfg)
 
 
 def _imports(path):
